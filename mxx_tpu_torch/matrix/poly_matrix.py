@@ -1,0 +1,189 @@
+"""Polynomial-matrix algebra over the DCRT ring: int64[L, r, c, n] tensors.
+
+The port's counterpart of `mxx_tpu/matrix/poly_matrix.py`: block algebra,
+gadget matrix, G^{-1} decomposition, concat/slice/transpose and the exact
+eval-domain matmul. Serialization, modulus switching, offload and the tensor
+products are not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops.decompose import digit_decompose
+from ..ops.elementwise import ew_add, ew_mul_const, ew_neg, ew_sub
+from ..ops.zq_matmul import zq_matmul
+from ..ring.ntt import ntt_fwd_auto, ntt_inv_auto
+from ..ring.params import RingParams
+from ..ring.poly import COEFF, EVAL, Poly, residues_from_int
+
+
+@dataclass(frozen=True)
+class PolyMatrix:
+    data: torch.Tensor  # int64[L, nrow, ncol, n]
+    fmt: str
+    params: RingParams
+
+    # ------------------------------------------------------------ construct
+
+    @staticmethod
+    def zero(params: RingParams, nrow: int, ncol: int, fmt: str = EVAL, device="cpu") -> "PolyMatrix":
+        return PolyMatrix(
+            torch.zeros((params.crt_depth, nrow, ncol, params.n), dtype=torch.int64, device=device),
+            fmt,
+            params,
+        )
+
+    @staticmethod
+    def identity(params: RingParams, size: int, scalar: Poly | None = None,
+                 device="cpu") -> "PolyMatrix":
+        diag = Poly.one(params, device) if scalar is None else scalar.to_eval()
+        data = torch.zeros((params.crt_depth, size, size, params.n), dtype=torch.int64,
+                           device=diag.data.device)
+        idx = torch.arange(size, device=data.device)
+        data[:, idx, idx, :] = diag.data[:, None, :]
+        return PolyMatrix(data, EVAL, params)
+
+    @staticmethod
+    def gadget_matrix(params: RingParams, size: int, device="cpu") -> "PolyMatrix":
+        """G = I_size tensor g, g the k-digit gadget row vector (EVAL form).
+
+        Entries are constant polys with residues `np_gadget_res[idx, limb]`.
+        Cached per (params, size, device)."""
+        device = torch.device(device)
+        cache = params._tables.setdefault("gadget_matrix_cache", {})
+        key = (size, str(device))
+        if key not in cache:
+            k = params.modulus_digits
+            gv = params.tables(device).gadget_res  # [k, L]
+            eye = torch.eye(size, dtype=torch.int64, device=device)
+            # out[l, i, j*k+m] = eye[i, j] * gv[m, l] (a broadcast product:
+            # CUDA has no integer einsum)
+            out = (eye[None, :, :, None] * gv.T[:, None, None, :]).reshape(
+                params.crt_depth, size, size * k
+            )
+            data = out[..., None].expand(out.shape + (params.n,)).contiguous()
+            cache[key] = PolyMatrix(data, EVAL, params)
+        return cache[key]
+
+    # ------------------------------------------------------------- shape ops
+
+    @property
+    def nrow(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def ncol(self) -> int:
+        return self.data.shape[2]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.nrow, self.ncol)
+
+    def entry(self, i: int, j: int) -> Poly:
+        return Poly(self.data[:, i, j, :], self.fmt, self.params)
+
+    def slice(self, row_start: int, row_end: int, col_start: int, col_end: int) -> "PolyMatrix":
+        return PolyMatrix(
+            self.data[:, row_start:row_end, col_start:col_end, :], self.fmt, self.params
+        )
+
+    def slice_rows(self, start: int, end: int) -> "PolyMatrix":
+        return self.slice(start, end, 0, self.ncol)
+
+    def slice_columns(self, start: int, end: int) -> "PolyMatrix":
+        return self.slice(0, self.nrow, start, end)
+
+    def transpose(self) -> "PolyMatrix":
+        return PolyMatrix(self.data.transpose(1, 2), self.fmt, self.params)
+
+    def concat_columns(self, others: list["PolyMatrix"]) -> "PolyMatrix":
+        mats = [self] + list(others)
+        datas = [m._convert(self.fmt).data for m in mats]
+        return PolyMatrix(torch.cat(datas, dim=2), self.fmt, self.params)
+
+    def concat_rows(self, others: list["PolyMatrix"]) -> "PolyMatrix":
+        mats = [self] + list(others)
+        datas = [m._convert(self.fmt).data for m in mats]
+        return PolyMatrix(torch.cat(datas, dim=1), self.fmt, self.params)
+
+    # --------------------------------------------------------------- format
+
+    def _convert(self, fmt: str) -> "PolyMatrix":
+        return self.to_eval() if fmt == EVAL else self.to_coeff()
+
+    def to_eval(self) -> "PolyMatrix":
+        if self.fmt == EVAL:
+            return self
+        return PolyMatrix(ntt_fwd_auto(self.data, self.params), EVAL, self.params)
+
+    def to_coeff(self) -> "PolyMatrix":
+        if self.fmt == COEFF:
+            return self
+        return PolyMatrix(ntt_inv_auto(self.data, self.params), COEFF, self.params)
+
+    # ----------------------------------------------------------- arithmetic
+
+    def _q(self) -> torch.Tensor:
+        return self.params.tables(self.data.device).moduli
+
+    def _harmonized(self, other: "PolyMatrix"):
+        if self.params is not other.params:
+            raise ValueError("params mismatch")
+        if self.fmt == other.fmt:
+            return self, other, self.fmt
+        return self.to_eval(), other.to_eval(), EVAL
+
+    def __add__(self, other: "PolyMatrix") -> "PolyMatrix":
+        a, b, fmt = self._harmonized(other)
+        return PolyMatrix(ew_add(a.data, b.data, self._q()), fmt, self.params)
+
+    def __sub__(self, other: "PolyMatrix") -> "PolyMatrix":
+        a, b, fmt = self._harmonized(other)
+        return PolyMatrix(ew_sub(a.data, b.data, self._q()), fmt, self.params)
+
+    def __neg__(self) -> "PolyMatrix":
+        return PolyMatrix(ew_neg(self.data, self._q()), self.fmt, self.params)
+
+    def __matmul__(self, other: "PolyMatrix") -> "PolyMatrix":
+        if self.ncol != other.nrow:
+            raise ValueError(f"shape mismatch {self.shape} @ {other.shape}")
+        a = self.to_eval().data
+        b = other.to_eval().data
+        return PolyMatrix(zq_matmul(a, b, self._q()), EVAL, self.params)
+
+    def mul_int_scalar(self, value: int) -> "PolyMatrix":
+        res = residues_from_int(self.params, value).astype(np.int64)
+        c = torch.from_numpy(res).to(self.data.device)
+        return PolyMatrix(ew_mul_const(self.data, c, self._q()), self.fmt, self.params)
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, PolyMatrix) or self.params is not other.params:
+            return NotImplemented
+        if self.shape != other.shape:
+            return False
+        a, b, _ = self._harmonized(other)
+        return bool(torch.equal(a.data, b.data))
+
+    def __hash__(self):
+        return id(self)
+
+    # --------------------------------------------------------- decomposition
+
+    def decompose(self) -> "PolyMatrix":
+        """G^{-1}: [r, c] -> [r*k, c] with per-tower digits."""
+        p = self.params
+        data = self.to_coeff().data
+        t = p.tables(data.device)
+        out = digit_decompose(
+            data,
+            t.moduli,
+            t.digit_masks,
+            base_bits=p.base_bits,
+            dpt=p.digits_per_tower,
+            towers=p.crt_depth,
+        )
+        return PolyMatrix(out, COEFF, p)

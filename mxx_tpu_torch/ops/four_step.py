@@ -1,0 +1,246 @@
+"""Four-step negacyclic NTT: host tables, the plain PyTorch version, and the
+wrappers of the CUDA kernels in `csrc/four_step_ntt.cu`.
+
+The port's counterpart of `mxx_tpu/ops/four_step_ntt.py` (tables) and
+`mxx_tpu/ops/pallas_four_step.py` (the fused TPU kernels it replaces). With
+n = n1 * n2 and a poly viewed as x[n2, n1] (x[i2, i1] = x_flat[i2 * n1 + i1]):
+
+    forward  X = ((W2 @ x) * T) @ W1
+    inverse  x = W2^-1 @ ((X @ W1^-1) * T^-1)
+
+all mod q, where W2 has bit-reversed rows and W1 bit-reversed columns so that
+X lands in the same bit-reversed EVAL order as ring/ntt.ntt_fwd.
+
+`four_step_ntt_fwd` / `four_step_ntt_inv` launch the kernel for a tensor on
+a CUDA device and take the plain version for a tensor on the CPU; anything
+the kernel does not take raises. `launches` counts kernel launches per
+direction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..utils.numth import bit_reverse, find_primitive_2n_root
+from . import cuda_build
+
+R32 = 1 << 32
+SOURCE = "four_step_ntt.cu"
+
+# kernel launches per direction; a plain integer each, reset by callers that
+# want to count the launches of one run
+launches = {"fwd": 0, "inv": 0}
+
+
+# --------------------------------------------------------------- host tables
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(params, n1: int):
+    """Per-limb W2 [L, n2, n2], T_mont [L, n2, n1], W1 [L, n1, n1] (numpy
+    uint32; T in Montgomery form), as `mxx_tpu/ops/four_step_ntt.py:_tables`."""
+    n = params.n
+    n2 = n // n1
+    assert n1 * n2 == n and n1 & (n1 - 1) == 0 and n2 & (n2 - 1) == 0
+    a_bits = n1.bit_length() - 1
+    b_bits = n2.bit_length() - 1
+    L = params.crt_depth
+    w2 = np.empty((L, n2, n2), dtype=np.uint32)
+    t_mont = np.empty((L, n2, n1), dtype=np.uint32)
+    w1 = np.empty((L, n1, n1), dtype=np.uint32)
+    for t, q in enumerate(params.moduli):
+        psi = find_primitive_2n_root(q, n)
+        om = psi * psi % q
+        for r in range(n2):
+            k2 = bit_reverse(r, b_bits)
+            base = pow(psi, n1, q) * pow(om, n1 * k2, q) % q  # (psi om^{k2})^{n1}
+            v = 1
+            for i2 in range(n2):
+                w2[t, r, i2] = v
+                v = v * base % q
+            tw = psi * pow(om, k2, q) % q  # psi om^{k2}
+            u = 1
+            for i1 in range(n1):
+                t_mont[t, r, i1] = u * R32 % q
+                u = u * tw % q
+        for i1 in range(n1):
+            for c in range(n1):
+                k1 = bit_reverse(c, a_bits)
+                w1[t, i1, c] = pow(om, n2 * i1 * k1 % n, q)
+    return w2, t_mont, w1
+
+
+def _mod_matinv(m: np.ndarray, q: int) -> np.ndarray:
+    """Inverse of a square matrix over Z_q (q prime < 2^31): Gauss-Jordan
+    elimination, vectorized over rows in int64 (products stay below 2^62)."""
+    n = m.shape[0]
+    a = np.concatenate([m.astype(np.int64) % q, np.eye(n, dtype=np.int64)], axis=1)
+    for col in range(n):
+        piv = col + int(np.flatnonzero(a[col:, col])[0])
+        a[[col, piv]] = a[[piv, col]]
+        a[col] = a[col] * pow(int(a[col, col]), -1, q) % q
+        f = a[:, col].copy()
+        f[col] = 0
+        a = (a - f[:, None] * a[col][None, :]) % q
+    return a[:, n:].astype(np.uint32)
+
+
+def _pow_mod(x: np.ndarray, e: int, q: int) -> np.ndarray:
+    """Elementwise x^e mod q (int64, q < 2^31)."""
+    out = np.ones_like(x)
+    base = x % q
+    while e:
+        if e & 1:
+            out = out * base % q
+        base = base * base % q
+        e >>= 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _std_tables(params, n1: int, inverse: bool):
+    """Standard-form (left, twiddle, right) int64 tables [L, ...]: (W2, T, W1)
+    for the forward transform, (W2^-1, T^-1, W1^-1) for the inverse."""
+    w2, t_mont, w1 = _tables(params, n1)
+    left, twiddle, right = [], [], []
+    for t, q in enumerate(params.moduli):
+        t_std = t_mont[t].astype(np.int64) * pow(R32, -1, q) % q
+        if inverse:
+            left.append(_mod_matinv(w2[t], q).astype(np.int64))
+            twiddle.append(_pow_mod(t_std, q - 2, q))
+            right.append(_mod_matinv(w1[t], q).astype(np.int64))
+        else:
+            left.append(w2[t].astype(np.int64))
+            twiddle.append(t_std)
+            right.append(w1[t].astype(np.int64))
+    return np.stack(left), np.stack(twiddle), np.stack(right)
+
+
+def _device_tables(params, n1: int, inverse: bool, device: torch.device, dtype: torch.dtype):
+    """(left, twiddle, right, moduli) as tensors on `device` (int64 for the
+    plain version, int32 for the kernel), cached on the params."""
+    key = ("four_step", n1, inverse, str(device), dtype)
+    if key not in params._tables:
+        arrays = _std_tables(params, n1, inverse) + (params.np_moduli,)
+        params._tables[key] = tuple(
+            torch.from_numpy(a.astype(np.int64)).to(device=device, dtype=dtype).contiguous()
+            for a in arrays
+        )
+    return params._tables[key]
+
+
+# ------------------------------------------------------------ plain version
+
+
+def _left(w, x, q):
+    """out[l, b, r, c] = sum_k w[l, r, k] x[l, b, k, c] mod q."""
+    acc = torch.zeros(x.shape[:2] + (w.shape[1], x.shape[3]), dtype=torch.int64, device=x.device)
+    for k in range(w.shape[2]):
+        acc = (acc + w[:, None, :, k, None] * x[:, :, k, None, :]) % q
+    return acc
+
+
+def _right(x, w, q):
+    """out[l, b, r, c] = sum_k x[l, b, r, k] w[l, k, c] mod q."""
+    acc = torch.zeros(x.shape[:3] + (w.shape[2],), dtype=torch.int64, device=x.device)
+    for k in range(w.shape[1]):
+        acc = (acc + x[:, :, :, k, None] * w[:, None, None, k, :]) % q
+    return acc
+
+
+def _plain(x: torch.Tensor, params, n1: int, inverse: bool) -> torch.Tensor:
+    L, n = x.shape[0], x.shape[-1]
+    n2 = n // n1
+    left, twiddle, right, q = _device_tables(params, n1, inverse, x.device, torch.int64)
+    q = q.view(L, 1, 1, 1)
+    xs = x.reshape(L, -1, n2, n1)
+    if inverse:
+        out = _left(left, _right(xs, right, q) * twiddle[:, None] % q, q)
+    else:
+        out = _right(_left(left, xs, q) * twiddle[:, None] % q, right, q)
+    return out.reshape(x.shape)
+
+
+def four_step_ntt_fwd_plain(x: torch.Tensor, params, n1: int) -> torch.Tensor:
+    """Plain PyTorch forward four-step NTT, on the kernel's layout."""
+    return _plain(x, params, n1, inverse=False)
+
+
+def four_step_ntt_inv_plain(x: torch.Tensor, params, n1: int) -> torch.Tensor:
+    """Plain PyTorch inverse four-step NTT, on the kernel's layout."""
+    return _plain(x, params, n1, inverse=True)
+
+
+# ------------------------------------------------------------- CUDA kernels
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = cuda_build.load(SOURCE)
+    fn = lib.mxx_four_step_ntt
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def build() -> float:
+    """Build (or load) the kernel library; seconds spent compiling."""
+    _kernel()
+    return cuda_build.build_seconds(SOURCE)
+
+
+def check_shape(x: torch.Tensor, params, n1: int) -> None:
+    """Raise unless the kernel takes x: int64 [L, ..., n], contiguous, on a
+    CUDA device, with the bounds stated in csrc/four_step_ntt.cu."""
+    if x.device.type != "cuda":
+        raise ValueError(f"four-step kernel needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.int64:
+        raise TypeError(f"four-step kernel takes int64 residues, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("four-step kernel takes a contiguous tensor")
+    n = params.n
+    if x.ndim < 2 or x.shape[0] != params.crt_depth or x.shape[-1] != n:
+        raise ValueError(f"shape {tuple(x.shape)} is not [L={params.crt_depth}, ..., n={n}]")
+    n2 = n // n1 if n1 > 0 else 0
+    if not (n1 * n2 == n and n1 & (n1 - 1) == 0 and n2 & (n2 - 1) == 0
+            and 4 <= n1 <= 256 and 8 <= n2 <= 256 and n <= 16384):
+        raise ValueError(f"four-step kernel bounds: n1={n1}, n2={n2}, n={n}")
+    if max(params.moduli) >= 1 << 31:
+        raise ValueError("four-step kernel needs q < 2^31")
+    if x.numel() // (params.crt_depth * n) >= 1 << 31:
+        raise ValueError("batch too large for one launch")
+
+
+def _launch(x: torch.Tensor, params, n1: int, inverse: bool) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return _plain(x, params, n1, inverse)
+    check_shape(x, params, n1)
+    out = torch.empty_like(x)
+    L, n = params.crt_depth, params.n
+    B = x.numel() // (L * n)
+    if B == 0:
+        return out
+    left, twiddle, right, q = _device_tables(params, n1, inverse, x.device, torch.int32)
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), out.data_ptr(), left.data_ptr(), twiddle.data_ptr(),
+                 right.data_ptr(), q.data_ptr(), L, B, n1, n // n1, int(inverse), stream)
+    if err != 0:
+        raise RuntimeError(f"four-step NTT kernel launch failed: cudaError {err}")
+    launches["inv" if inverse else "fwd"] += 1
+    return out
+
+
+def four_step_ntt_fwd(x: torch.Tensor, params, n1: int) -> torch.Tensor:
+    """Forward negacyclic NTT (bit-reversed EVAL output). x: int64[L, ..., n]."""
+    return _launch(x, params, n1, inverse=False)
+
+
+def four_step_ntt_inv(x: torch.Tensor, params, n1: int) -> torch.Tensor:
+    """Inverse negacyclic NTT (bit-reversed EVAL input -> natural coeffs)."""
+    return _launch(x, params, n1, inverse=True)
