@@ -7,20 +7,34 @@ Run from the root of a checkout. It imports no jax and nothing of the JAX
 package, needs one card, and exits non-zero on any failure (no CUDA device,
 no package beside it, a kernel that does not build, launch or agree):
 
-1. the card's name and power limit (nvidia-smi), then the kernel build;
-2. the four-step NTT kernels against the radix chain (whole batch) and the
-   plain four-step (first 8 polys), and the round trip, at
+1. the card's name and power limit (nvidia-smi), then the kernel builds (one
+   nvcc per source, started together);
+2. the four-step NTT kernels (K1 forward, K2 inverse) against the radix
+   chain (whole batch) and the plain four-step (first 8 polys), and the round
+   trip, at
    A: n=2^13, L=8, crt_bits 28, base_bits 14, B=512 (n1 = 64) and
    B: n=2^14, L=10, crt_bits 24, base_bits 12, B=64 (n1 = 128);
-3. the main path: an MP12 trapdoor preimage at the bench shape
+3. the radix-2 kernel's path (K3): `ntt_fwd_head` and `ntt_fwd_hybrid` at
+   shapes A and B, with their launch counters reset before and read after,
+   then checked against their plain versions, the radix chain and K1;
+4. the main path: an MP12 trapdoor preimage at the bench shape
    (n=2^14, L=10, crt_bits 24, base_bits 12, d=1, sigma 4.578, seed 2,
    uniform 1x50 target), checked A x == U exactly, with the kernels' launch
    counters reset before the call and read after it;
-4. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
-   at shape A (kernel and radix chain), preimage-cols/s, GSW ext-prods/s at
-   n=2^13, L=8, B=64, and each kernel against its plain version at the
-   largest transform of the preimage ([10, 1000, 16384]);
-5. one JSON line of kernels, then the result line.
+5. BGG+ circuit evaluation at n=2^13, L=8, crt_bits 28, base_bits 14, d=1:
+   16 public and 16 secret inputs, hash-sampled public keys, encodings with
+   zero error, scaled public inputs (8 SmallScalarMul, 8 LargeScalarMul),
+   their inner product with the secret inputs (16 Mul, 15 Add) and 4 Sub;
+   the pubkey and encoding passes each run sequentially and through
+   `eval_batched`, checked batched == sequential, encoding pubkeys == pubkey
+   pass, and the decode invariant c = s A - x (s G) exactly, with the
+   four-step kernels' launch counters reset before and read after;
+6. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+   at shape A (K1, K3, radix chain), preimage-cols/s, GSW ext-prods/s at
+   n=2^13, L=8, B=64, each kernel against its plain version at the largest
+   transform of the preimage ([10, 1000, 16384]), the two batched BGG passes,
+   and a stage-timed batched encoding pass;
+7. one JSON line of kernels, then the result line.
 """
 
 import json
@@ -28,8 +42,12 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
+
+BGG_KEY = bytes([0x13, 0x37, 0xC0, 0xDE] * 8)
+N_BGG_INPUTS = 16
 
 
 def card_line() -> str:
@@ -68,33 +86,35 @@ def residues(params, lead, seed, device):
     return x % q
 
 
-def main() -> None:
+def max_err(a, b) -> int:
+    return int((a - b).abs().max())
+
+
+def build_kernels(modules) -> None:
+    """One nvcc per source, all started together; ptxas lines printed."""
+    from mxx_tpu_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        seconds = list(pool.map(lambda m: m.build(), modules))
+    for m, s in zip(modules, seconds):
+        print(f"build: {m.SOURCE} compiled in {s:.2f} s", flush=True)
+        for line in cuda_build.build_log(m.SOURCE).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas: {m.SOURCE}: {line.strip()}", flush=True)
+    print(f"build: all kernels ready in {time.perf_counter() - t0:.2f} s (with loading)",
+          flush=True)
+
+
+def check_four_step(dev, shapes) -> None:
+    """K1 and K2 against the radix chain and the plain four-step."""
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device")
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
     from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring import ntt
     from mxx_tpu_torch.ring.params import RingParams
-    from mxx_tpu_torch.sampler import FinRingDist, TrapdoorSampler, UniformSampler
 
-    dev = torch.device("cuda")
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(card, flush=True)
-
-    # 1. build
-    t0 = time.perf_counter()
-    compile_s = four_step.build()
-    print(f"build: four_step_ntt.cu compiled in {compile_s:.2f} s "
-          f"({time.perf_counter() - t0:.2f} s with loading)", flush=True)
-    for line in four_step.cuda_build.build_log(four_step.SOURCE).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
-
-    # 2. kernels against the radix chain and the plain four-step
-    for label, args, B in [("A", (8192, 8, 28, 14), 512), ("B", (16384, 10, 24, 12), 64)]:
+    for label, args, B in shapes:
         p = RingParams.new(*args)
         n1 = p.n // 128
         t = p.tables(dev)
@@ -115,10 +135,219 @@ def main() -> None:
               f"inv==chain {ok_chain_inv}, fwd==plain {ok_plain}, inv==plain {ok_plain_inv}, "
               f"inv(fwd(x))==x {ok_trip} (tolerance 0: bit-exact)", flush=True)
         if not all((ok_chain, ok_chain_inv, ok_plain, ok_plain_inv, ok_trip)):
-            raise SystemExit(f"chip_smoke: kernel disagrees at shape {label}")
-        del x, fwd, back, chain
+            raise SystemExit(f"chip_smoke: four-step kernel disagrees at shape {label}")
 
-    # 3. the main path
+
+def drive_radix(dev, shapes) -> tuple[dict, int]:
+    """K3's path: ntt_fwd_head and ntt_fwd_hybrid at each shape, counted;
+    then each result against the plain versions, the radix chain and K1."""
+    import torch
+
+    from mxx_tpu_torch.ops import four_step, hybrid_ntt
+    from mxx_tpu_torch.ring import ntt
+    from mxx_tpu_torch.ring.params import RingParams
+
+    inputs = []
+    for label, args, B in shapes:
+        p = RingParams.new(*args)
+        inputs.append((label, p, residues(p, (B,), 6, dev)))
+    torch.cuda.synchronize()
+    hybrid_ntt.launches.update(head=0, hybrid=0)
+    results = [(hybrid_ntt.ntt_fwd_head(x, p), hybrid_ntt.ntt_fwd_hybrid(x, p))
+               for _, p, x in inputs]
+    torch.cuda.synchronize()
+    counts = dict(hybrid_ntt.launches)
+    print(f"radix path: launches head {counts['head']}, hybrid {counts['hybrid']}", flush=True)
+    worst = 0
+    for (label, p, x), (head, full) in zip(inputs, results):
+        t = p.tables(dev)
+        errs = {
+            "head==head_plain": max_err(head, hybrid_ntt.ntt_fwd_head_plain(x, p)),
+            "hybrid==chain": max_err(full, ntt.ntt_fwd(x, t.psi_rev, t.moduli)),
+            "hybrid==K1": max_err(full, four_step.four_step_ntt_fwd(x, p, p.n // 128)),
+            "hybrid==hybrid_plain[:8]": max_err(full[:, :8],
+                                                hybrid_ntt.ntt_fwd_hybrid_plain(x[:, :8], p)),
+        }
+        torch.cuda.synchronize()
+        print(f"check K3 {label} n={p.n} L={p.crt_depth} B={x.shape[1]}: "
+              + ", ".join(f"{k} max|d| {v}" for k, v in errs.items())
+              + " (tolerance 0: bit-exact)", flush=True)
+        worst = max(worst, *errs.values())
+    if worst != 0 or counts["head"] == 0 or counts["hybrid"] == 0:
+        raise SystemExit("chip_smoke: the radix-2 kernel disagrees or did not launch")
+    return counts, worst
+
+
+def bgg_circuit(p, dev):
+    """The circuit of phase 5 and its inputs: (circuit, public keys,
+    encodings, plaintexts, encoding sampler)."""
+    from mxx_tpu_torch.bgg import BGGEncodingSampler, BGGPublicKeySampler
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.gadgets import secret_inner_product
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.sampler import TernaryDist, UniformSampler
+
+    n_in = N_BGG_INPUTS
+    c = PolyCircuit()
+    pub = c.input(n_in)
+    sec = c.input(n_in)
+    scaled = [c.small_scalar_mul(pub[i], [i + 1]) for i in range(8)]
+    scaled += [c.large_scalar_mul(pub[i], [2**20 + i]) for i in range(8, n_in)]
+    ip = secret_inner_product(c, scaled, list(sec))
+    c.output([ip] + [c.sub_gate(scaled[j], scaled[j + 4]) for j in range(4)])
+
+    us = UniformSampler(seed=11, device=dev)
+    secret = us.sample_poly(p, TernaryDist())
+    plain = [Poly.const(p, 3 * i + 1, dev) for i in range(n_in)]
+    plain += [us.sample_poly(p, TernaryDist()) for _ in range(n_in)]
+    pks = BGGPublicKeySampler(BGG_KEY, 1, device=dev).sample(
+        p, b"chip_smoke", [True] * n_in + [False] * n_in)
+    es = BGGEncodingSampler(p, [secret], gauss_sigma=None)
+    encs = es.sample(p, pks, plain)
+    return c, pks, encs, plain, es
+
+
+def drive_bgg(p, dev) -> dict:
+    """Phase 5: both passes, sequential and batched, checked exactly."""
+    import torch
+
+    from mxx_tpu_torch.circuit.batched_eval import eval_batched
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import Poly
+
+    c, pks, encs, plain, es = bgg_circuit(p, dev)
+    torch.cuda.synchronize()
+    four_step.launches.update(fwd=0, inv=0)
+    seq_pk = c.eval(p, pks[0], pks[1:])
+    bat_pk = eval_batched(c, p, pks[0], pks[1:])
+    seq_enc = c.eval(p, encs[0], encs[1:])
+    bat_enc = eval_batched(c, p, encs[0], encs[1:])
+    torch.cuda.synchronize()
+    counts = dict(four_step.launches)
+    x_out = c.eval(p, Poly.one(p, dev), plain)  # the plaintext oracle
+    s_g = es.secret_vec @ PolyMatrix.gadget_matrix(p, 1, dev)
+    ok_pk = all(a == b for a, b in zip(seq_pk, bat_pk))
+    ok_enc = all(a == b for a, b in zip(seq_enc, bat_enc))
+    ok_keys = all(e.pubkey == k for e, k in zip(bat_enc, bat_pk))
+    ok_decode = all(e.vector == es.secret_vec @ e.pubkey.matrix - s_g.mul_poly_scalar(x)
+                    for e, x in zip(bat_enc, x_out))
+    ok_pt = all(e.plaintext is None or e.plaintext == x for e, x in zip(bat_enc, x_out))
+    ok_shape = all(e.vector.data.shape == (p.crt_depth, 1, p.modulus_digits, p.n)
+                   for e in bat_enc)
+    torch.cuda.synchronize()
+    print(f"bgg circuit n={p.n} L={p.crt_depth} d=1, {N_BGG_INPUTS}+{N_BGG_INPUTS} inputs, "
+          f"{c.gate_counts()}: pubkeys batched==sequential {ok_pk}, encodings batched=="
+          f"sequential {ok_enc}, encoding pubkeys == pubkey pass {ok_keys}, "
+          f"c == s A - x (s G) {ok_decode}, plaintexts == oracle {ok_pt}, shapes {ok_shape} "
+          f"(tolerance 0: exact); launches in the phase: fwd {counts['fwd']}, "
+          f"inv {counts['inv']}", flush=True)
+    if not all((ok_pk, ok_enc, ok_keys, ok_decode, ok_pt, ok_shape)):
+        raise SystemExit("chip_smoke: BGG circuit check failed")
+    if counts["fwd"] == 0 or counts["inv"] == 0:
+        raise SystemExit("chip_smoke: the BGG phase did not go through both four-step kernels")
+    return {"params": p, "circuit": c, "pks": pks, "encs": encs}
+
+
+def bgg_stage_breakdown(bgg, timing) -> None:
+    """One batched encoding pass with a synchronize around each stage: the
+    transforms, the digit decomposition, zq_matmul and the elementwise ops
+    of the evaluator; the rest is host time."""
+    import torch
+
+    from mxx_tpu_torch.circuit import batched_eval
+    from mxx_tpu_torch.matrix import poly_matrix
+    from mxx_tpu_torch.ring import poly
+
+    stages = {"transforms (K1/K2)": 0.0, "digit_decompose": 0.0, "zq_matmul": 0.0,
+              "elementwise": 0.0}
+    patches = [
+        (batched_eval, "ntt_fwd_auto", "transforms (K1/K2)"),
+        (batched_eval, "ntt_inv_auto", "transforms (K1/K2)"),
+        (poly_matrix, "ntt_fwd_auto", "transforms (K1/K2)"),
+        (poly_matrix, "ntt_inv_auto", "transforms (K1/K2)"),
+        (poly, "ntt_fwd_auto", "transforms (K1/K2)"),
+        (poly, "ntt_inv_auto", "transforms (K1/K2)"),
+        (batched_eval, "digit_decompose", "digit_decompose"),
+        (batched_eval, "zq_matmul", "zq_matmul"),
+        (batched_eval, "ew_add", "elementwise"),
+        (batched_eval, "ew_sub", "elementwise"),
+        (batched_eval, "ew_mul", "elementwise"),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+
+    def timed(fn, stage):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[stage] += time.perf_counter() - t0
+            return out
+        return run
+
+    p, c, encs = bgg["params"], bgg["circuit"], bgg["encs"]
+    batched_eval.eval_batched(c, p, encs[0], encs[1:])  # warm-up
+    try:
+        for mod, name, stage in patches:
+            setattr(mod, name, timed(getattr(mod, name), stage))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched_eval.eval_batched(c, p, encs[0], encs[1:])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    parts = ", ".join(f"{k} {v * 1e3:.3f} ms ({v / total:.1%})" for k, v in stages.items())
+    host = total - sum(stages.values())
+    timing("bgg encoding pass, batched, stage-timed (synchronize at each stage)", total * 1e3,
+           "ms", f": {parts}, host and the rest {host * 1e3:.3f} ms ({host / total:.1%})")
+
+    # device busy time by the profiler (which slows the host, so the idle
+    # share it shows is an upper bound)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batched_eval.eval_batched(c, p, encs[0], encs[1:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.time_range.elapsed_us() for e in events) * 1e-6
+    timing("bgg encoding pass, batched, profiled", wall * 1e3, "ms",
+           f": {len(events)} device kernels, device busy {busy * 1e3:.3f} ms, "
+           f"idle {1 - busy / wall:.1%} of the call")
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mxx_tpu_torch.ops import four_step, hybrid_ntt
+    from mxx_tpu_torch.ring import ntt
+    from mxx_tpu_torch.ring.params import RingParams
+    from mxx_tpu_torch.sampler import FinRingDist, TrapdoorSampler, UniformSampler
+
+    dev = torch.device("cuda")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(card, flush=True)
+    shapes = [("A", (8192, 8, 28, 14), 512), ("B", (16384, 10, 24, 12), 64)]
+
+    # 1. build
+    build_kernels([four_step, hybrid_ntt])
+
+    # 2. K1 and K2 against the radix chain and the plain four-step
+    check_four_step(dev, shapes)
+
+    # 3. the radix-2 kernel's path
+    radix_counts, radix_err = drive_radix(dev, shapes)
+    torch.cuda.empty_cache()
+
+    # 4. the main path
     pp = RingParams.new(16384, 10, 24, 12)
     ts = TrapdoorSampler(pp, 4.578, seed=2, device=dev)
     td, a = ts.trapdoor(pp, 1)
@@ -142,17 +371,24 @@ def main() -> None:
         raise SystemExit("chip_smoke: the main path did not go through both kernels")
     del x
 
-    # 4. timings
+    # 5. BGG+ circuit evaluation
+    bgg = drive_bgg(RingParams.new(8192, 8, 28, 14), dev)
+    torch.cuda.empty_cache()
+
+    # 6. timings
     def timing(metric, value, unit, extra=""):
-        print(f"timing: {metric} = {value:.1f} {unit}{extra} [{card}]", flush=True)
+        print(f"timing: {metric} = {value:.4f} {unit}{extra} [{card}]", flush=True)
 
     p = RingParams.new(8192, 8, 28, 14)
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
+    ms_radix = cuda_ms(lambda: hybrid_ntt.ntt_fwd_hybrid(xa, p), 10)
     ms_chain = cuda_ms(lambda: ntt.ntt_fwd(xa, t.psi_rev, t.moduli), 5)
-    timing("ntt_fwd n=8192 L=8 B=512, four-step kernel", 8 * 512 / ms_kernel * 1e3,
+    timing("ntt_fwd n=8192 L=8 B=512, four-step kernel (K1)", 8 * 512 / ms_kernel * 1e3,
            "limb-NTTs/s", f" ({ms_kernel:.3f} ms)")
+    timing("ntt_fwd n=8192 L=8 B=512, radix-2 kernel ntt_fwd_hybrid (K3)",
+           8 * 512 / ms_radix * 1e3, "limb-NTTs/s", f" ({ms_radix:.3f} ms)")
     timing("ntt_fwd n=8192 L=8 B=512, radix chain (plain torch)", 8 * 512 / ms_chain * 1e3,
            "limb-NTTs/s", f" ({ms_chain:.3f} ms)")
     del xa
@@ -171,38 +407,65 @@ def main() -> None:
     del c_mat, cts
     torch.cuda.empty_cache()
 
+    from mxx_tpu_torch.circuit.batched_eval import eval_batched
+
+    bp, bc = bgg["params"], bgg["circuit"]
+    n_gates = sum(v for g, v in bc.gate_counts().items() if g != "Input")
+    for label, wires in [("pubkey", bgg["pks"]), ("encoding", bgg["encs"])]:
+        ms = cuda_ms(lambda w=wires: eval_batched(bc, bp, w[0], w[1:]), 3)
+        timing(f"bgg {label} pass, batched, n=8192 L=8 d=1, {n_gates} gates", n_gates / ms * 1e3,
+               "gates/s", f" ({ms:.1f} ms per pass)")
+    bgg_stage_breakdown(bgg, timing)
+    del bgg
+    torch.cuda.empty_cache()
+
     # each kernel against its plain version at the preimage's largest transform
     tpp = pp.tables(dev)
     xm = residues(pp, (1000,), 5, dev)
     kernels = []
     cases = [
-        ("four_step_ntt_fwd", "fwd",
+        ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
+         counts["fwd"],
          partial(four_step.four_step_ntt_fwd, xm, pp, 128),
          partial(four_step.four_step_ntt_fwd_plain, xm, pp, 128),
-         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli)),
-        ("four_step_ntt_inv", "inv",
+         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 2),
+        ("four_step_ntt_inv", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
+         counts["inv"],
          partial(four_step.four_step_ntt_inv, xm, pp, 128),
          partial(four_step.four_step_ntt_inv_plain, xm, pp, 128),
-         partial(ntt.ntt_inv, xm, tpp.psi_inv_rev, tpp.n_inv, tpp.moduli)),
+         partial(ntt.ntt_inv, xm, tpp.psi_inv_rev, tpp.n_inv, tpp.moduli), 2),
+        ("ntt_fwd_head", "radix_ntt.cu", "mxx_tpu/ops/pallas_ntt.py:37", radix_counts["head"],
+         partial(hybrid_ntt.ntt_fwd_head, xm, pp),
+         partial(hybrid_ntt.ntt_fwd_head_plain, xm, pp), None, 3),
+        ("ntt_fwd_hybrid", "radix_ntt.cu", "mxx_tpu/ops/pallas_ntt.py:37",
+         radix_counts["hybrid"],
+         partial(hybrid_ntt.ntt_fwd_hybrid, xm, pp),
+         partial(hybrid_ntt.ntt_fwd_hybrid_plain, xm, pp),
+         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 3),
     ]
-    for name, direction, run, plain, chain in cases:
+    for name, source, replaces, launches, run, plain, chain, plain_iters in cases:
         got = run()
-        err = max(int((got - plain()).abs().max()), int((got - chain()).abs().max()))
+        err = max_err(got, plain())
+        if chain is not None:
+            err = max(err, max_err(got, chain()))
+        if source == "radix_ntt.cu":
+            err = max(err, radix_err)
         del got
         ms = cuda_ms(run, 10)
-        ms_plain = cuda_ms(plain, 2)
-        ms_chain = cuda_ms(chain, 3)
+        ms_plain = cuda_ms(plain, plain_iters)
+        extra = f" kernel; plain version {ms_plain:.3f} ms"
+        entry = {"name": name, "route": "cuda", "source": f"mxx_tpu_torch/csrc/{source}",
+                 "replaces": replaces, "launches": launches, "max_abs_err": err,
+                 "ms": ms, "plain_ms": ms_plain}
+        if chain is not None:
+            ms_chain = cuda_ms(chain, 3)
+            entry["chain_ms"] = ms_chain
+            extra += f", radix chain {ms_chain:.3f} ms"
         timing(f"{name} [10, 1000, 16384]", ms, "ms",
-               f" kernel; plain four-step {ms_plain:.3f} ms, radix chain {ms_chain:.3f} ms, "
-               f"max |kernel - plain| {err} (tolerance 0: bit-exact)")
+               f"{extra}, max |kernel - plain| {err} (tolerance 0: bit-exact)")
         if err != 0:
             raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
-        kernels.append({
-            "name": name, "route": "cuda", "source": "mxx_tpu_torch/csrc/four_step_ntt.cu",
-            "replaces": "mxx_tpu/ops/pallas_four_step.py:135",
-            "launches": counts[direction], "max_abs_err": err,
-            "ms": ms, "plain_ms": ms_plain, "chain_ms": ms_chain,
-        })
+        kernels.append(entry)
         torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)

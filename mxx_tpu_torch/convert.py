@@ -2,7 +2,8 @@
 
 The functions take and give numpy arrays (`np.asarray` of a jax array is
 one), so this module imports neither jax nor `mxx_tpu`: the tests use it to
-run the port on the JAX package's trapdoor, public matrix and keys.
+run the port on the JAX package's trapdoor, public matrix, keys, BGG+ public
+keys, encodings and secrets.
 """
 
 from __future__ import annotations
@@ -10,8 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .bgg import BggEncoding, BggPublicKey
 from .matrix import PolyMatrix
 from .ring.params import RingParams
+from .ring.poly import Poly
 from .sampler.trapdoor import Trapdoor
 
 
@@ -23,9 +26,38 @@ def poly_matrix_from_numpy(params: RingParams, arr, fmt: str, device="cpu") -> P
     return PolyMatrix(torch.from_numpy(a.astype(np.int64)).to(device), fmt, params)
 
 
-def to_numpy(mat: PolyMatrix) -> np.ndarray:
-    """PolyMatrix -> uint32[L, r, c, n] residues, the JAX package's layout."""
-    return mat.data.cpu().numpy().astype(np.uint32)
+def to_numpy(value: PolyMatrix | Poly) -> np.ndarray:
+    """PolyMatrix or Poly -> uint32 residues ([L, r, c, n] or [L, n]), the
+    JAX package's layout."""
+    return value.data.cpu().numpy().astype(np.uint32)
+
+
+def poly_from_numpy(params: RingParams, arr, fmt: str, device="cpu") -> Poly:
+    """uint32[L, n] residues (a JAX package Poly's data) -> Poly."""
+    a = np.asarray(arr)
+    if a.shape != (params.crt_depth, params.n):
+        raise ValueError(f"shape {a.shape} is not [L={params.crt_depth}, n={params.n}]")
+    return Poly(torch.from_numpy(a.astype(np.int64)).to(device), fmt, params)
+
+
+def secrets_from_numpy(params: RingParams, arrs, fmt: str, device="cpu") -> list[Poly]:
+    """The secret row of a BGG+ encoding sampler, one uint32[L, n] per poly."""
+    return [poly_from_numpy(params, a, fmt, device) for a in arrs]
+
+
+def public_key_from_numpy(params: RingParams, matrix, fmt: str, reveal_plaintext: bool,
+                          device="cpu") -> BggPublicKey:
+    """BGG+ public key from its matrix residues uint32[L, d, m, n]."""
+    return BggPublicKey(poly_matrix_from_numpy(params, matrix, fmt, device), reveal_plaintext)
+
+
+def encoding_from_numpy(params: RingParams, vector, vector_fmt: str, pubkey: BggPublicKey,
+                        plaintext=None, plaintext_fmt: str | None = None,
+                        device="cpu") -> BggEncoding:
+    """BGG+ encoding from its vector residues uint32[L, 1, m, n], its public
+    key and, where it is known, its plaintext residues uint32[L, n]."""
+    pt = None if plaintext is None else poly_from_numpy(params, plaintext, plaintext_fmt, device)
+    return BggEncoding(poly_matrix_from_numpy(params, vector, vector_fmt, device), pubkey, pt)
 
 
 def trapdoor_from_numpy(params: RingParams, r, e, fmt: str, device="cpu") -> Trapdoor:

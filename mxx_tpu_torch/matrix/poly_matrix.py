@@ -1,24 +1,29 @@
 """Polynomial-matrix algebra over the DCRT ring: int64[L, r, c, n] tensors.
 
 The port's counterpart of `mxx_tpu/matrix/poly_matrix.py`: block algebra,
-gadget matrix, G^{-1} decomposition, concat/slice/transpose and the exact
-eval-domain matmul. Serialization, modulus switching, offload and the tensor
-products are not ported yet.
+gadget matrix, G^{-1} decomposition, concat/slice/transpose, the Kronecker
+product, the exact eval-domain matmul and the compact bytes of the JAX
+package (uint32 residues after a 25-byte header). Modulus switching, offload,
+the packed bytes and the tensor-identity products are not ported yet.
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..ops.decompose import digit_decompose
-from ..ops.elementwise import ew_add, ew_mul_const, ew_neg, ew_sub
+from ..ops.elementwise import ew_add, ew_mul, ew_mul_const, ew_neg, ew_sub
 from ..ops.zq_matmul import zq_matmul
+from ..ring.element import FinRingElem
 from ..ring.ntt import ntt_fwd_auto, ntt_inv_auto
 from ..ring.params import RingParams
 from ..ring.poly import COEFF, EVAL, Poly, residues_from_int
+
+_MAGIC = b"MXTM"
 
 
 @dataclass(frozen=True)
@@ -46,6 +51,25 @@ class PolyMatrix:
         idx = torch.arange(size, device=data.device)
         data[:, idx, idx, :] = diag.data[:, None, :]
         return PolyMatrix(data, EVAL, params)
+
+    @staticmethod
+    def from_polys(params: RingParams, rows: list[list[Poly]]) -> "PolyMatrix":
+        """Matrix of polys given row by row (EVAL if their formats differ)."""
+        fmts = {p.fmt for r in rows for p in r}
+        fmt = EVAL if len(fmts) > 1 else fmts.pop()
+        datas = [[(p.to_eval() if fmt == EVAL else p).data for p in row] for row in rows]
+        data = torch.stack([torch.stack(r, dim=1) for r in datas], dim=1)
+        if data.shape != (params.crt_depth, len(rows), len(rows[0]), params.n):
+            raise ValueError(f"polys of shape {tuple(data.shape)} do not match {params}")
+        return PolyMatrix(data, fmt, params)
+
+    @staticmethod
+    def from_poly_row(params: RingParams, polys: list[Poly]) -> "PolyMatrix":
+        return PolyMatrix.from_polys(params, [polys])
+
+    @staticmethod
+    def from_poly_column(params: RingParams, polys: list[Poly]) -> "PolyMatrix":
+        return PolyMatrix.from_polys(params, [[p] for p in polys])
 
     @staticmethod
     def gadget_matrix(params: RingParams, size: int, device="cpu") -> "PolyMatrix":
@@ -99,6 +123,16 @@ class PolyMatrix:
 
     def transpose(self) -> "PolyMatrix":
         return PolyMatrix(self.data.transpose(1, 2), self.fmt, self.params)
+
+    def tensor(self, other: "PolyMatrix") -> "PolyMatrix":
+        """Kronecker product with pointwise poly products (EVAL form)."""
+        a = self.to_eval().data
+        b = other.to_eval().data
+        L, n = a.shape[0], a.shape[-1]
+        z = ew_mul(a[:, :, None, :, None, :], b[:, None, :, None, :, :], self._q())
+        return PolyMatrix(
+            z.reshape(L, self.nrow * other.nrow, self.ncol * other.ncol, n), EVAL, self.params
+        )
 
     def concat_columns(self, others: list["PolyMatrix"]) -> "PolyMatrix":
         mats = [self] + list(others)
@@ -155,6 +189,23 @@ class PolyMatrix:
         b = other.to_eval().data
         return PolyMatrix(zq_matmul(a, b, self._q()), EVAL, self.params)
 
+    def __mul__(self, other):
+        """Matrix * matrix, matrix * Poly (scalar), or matrix * int/FinRingElem."""
+        if isinstance(other, PolyMatrix):
+            return self @ other
+        if isinstance(other, Poly):
+            return self.mul_poly_scalar(other)
+        if isinstance(other, FinRingElem):
+            return self.mul_int_scalar(other.value)
+        if isinstance(other, int):
+            return self.mul_int_scalar(other)
+        return NotImplemented
+
+    def mul_poly_scalar(self, scalar: Poly) -> "PolyMatrix":
+        a = self.to_eval().data
+        s = scalar.to_eval().data
+        return PolyMatrix(ew_mul(a, s[:, None, None, :], self._q()), EVAL, self.params)
+
     def mul_int_scalar(self, value: int) -> "PolyMatrix":
         res = residues_from_int(self.params, value).astype(np.int64)
         c = torch.from_numpy(res).to(self.data.device)
@@ -187,3 +238,34 @@ class PolyMatrix:
             towers=p.crt_depth,
         )
         return PolyMatrix(out, COEFF, p)
+
+    def mul_decompose(self, other: "PolyMatrix") -> "PolyMatrix":
+        """self @ G^{-1}(other): self [*, d*k], other [d, m] -> [*, m]."""
+        k = self.params.modulus_digits
+        if self.ncol != other.nrow * k:
+            raise ValueError(f"shape mismatch {self.shape} @ G^-1 of {other.shape}, k={k}")
+        return self @ other.decompose()
+
+    # ---------------------------------------------------------------- serde
+
+    def to_compact_bytes(self) -> bytes:
+        p = self.params
+        arr = self.data.cpu().numpy().astype(np.uint32)
+        header = _MAGIC + struct.pack(
+            "<BBIIIIHB", 1, 0 if self.fmt == COEFF else 1, self.nrow, self.ncol, p.n,
+            p.crt_depth, p.crt_bits, p.base_bits,
+        )
+        return header + arr.tobytes()
+
+    @staticmethod
+    def from_compact_bytes(params: RingParams, raw: bytes, device="cpu") -> "PolyMatrix":
+        if raw[:4] != _MAGIC:
+            raise ValueError("bad matrix magic")
+        ver, fmt_i, nrow, ncol, n, depth, _crt_bits, _base_bits = struct.unpack(
+            "<BBIIIIHB", raw[4:25]
+        )
+        if ver != 1 or n != params.n or depth != params.crt_depth:
+            raise ValueError(f"matrix bytes v{ver} n={n} L={depth} do not match {params}")
+        arr = np.frombuffer(raw[25:], dtype=np.uint32).reshape(depth, nrow, ncol, n)
+        data = torch.from_numpy(arr.astype(np.int64)).to(device)
+        return PolyMatrix(data, COEFF if fmt_i == 0 else EVAL, params)

@@ -7,8 +7,9 @@ the accumulator stays below q and each product below 2^62, so every step is
 exact. (CUDA has no integer `torch.matmul`; an int8 digit-plane form on
 `torch._int_mm` waits for a profile that shows the need.)
 
-Shapes: a int64[L, r, k, n], b int64[L, k, c, n], both in EVAL format;
-result int64[L, r, c, n].
+Shapes: a int64[..., L, r, k, n], b int64[..., L, k, c, n], both in EVAL
+format, with the same leading batch dims (none for one product); result
+int64[..., L, r, c, n].
 """
 
 from __future__ import annotations
@@ -17,14 +18,14 @@ import torch
 
 
 def zq_matmul(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Exact (a @ b) mod q, batched per (limb, eval-slot)."""
-    L, r, k, n = a.shape
-    c = b.shape[2]
-    if b.shape != (L, k, c, n):
+    """Exact (a @ b) mod q, batched per (limb, eval-slot) and leading dims."""
+    *lead, L, r, k, n = a.shape
+    c = b.shape[-2]
+    if tuple(b.shape) != (*lead, L, k, c, n):
         raise ValueError(f"shape mismatch {tuple(a.shape)} @ {tuple(b.shape)}")
     qb = q.reshape(L, 1, 1, 1)
-    acc = torch.zeros((L, r, c, n), dtype=torch.int64, device=a.device)
+    acc = torch.zeros((*lead, L, r, c, n), dtype=torch.int64, device=a.device)
     for j in range(k):
-        acc += a[:, :, j, None, :] * b[:, j, None, :, :]
+        acc += a[..., j, :].unsqueeze(-2) * b[..., j, :, :].unsqueeze(-3)
         acc.remainder_(qb)
     return acc

@@ -2,11 +2,13 @@
 
 The port's counterpart of `mxx_tpu/ring/poly.py`. EVAL format = the
 bit-reversed negacyclic evaluation order produced by `ring.ntt.ntt_fwd`.
-Serialization is not ported yet.
+The compact bytes are the JAX package's format (uint32 residues after a
+17-byte header), so either package reads what the other wrote.
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 
 import numpy as np
@@ -19,10 +21,26 @@ from .params import RingParams
 COEFF = "coeff"
 EVAL = "eval"
 
+_MAGIC = b"MXTP"
+
 
 def residues_from_int(params: RingParams, value: int) -> np.ndarray:
     """Per-limb residues [L] of a (possibly big) integer."""
     return np.array([value % q for q in params.moduli], dtype=np.uint32)
+
+
+def residue_planes_from_ints(params: RingParams, values) -> np.ndarray:
+    """[L, len(values)] residue planes from a list of Python ints."""
+    out = np.empty((params.crt_depth, len(values)), dtype=np.uint32)
+    vals = [int(v) for v in values]
+    if all(0 <= v < (1 << 63) for v in vals):
+        arr = np.array(vals, dtype=np.uint64)
+        for t, q in enumerate(params.moduli):
+            out[t] = (arr % np.uint64(q)).astype(np.uint32)
+    else:
+        for t, q in enumerate(params.moduli):
+            out[t] = np.array([v % q for v in vals], dtype=np.uint32)
+    return out
 
 
 @dataclass(frozen=True)
@@ -51,6 +69,14 @@ class Poly:
     def one(params: RingParams, device="cpu") -> "Poly":
         return Poly.const(params, 1, device)
 
+    @staticmethod
+    def from_int_coeffs(params: RingParams, coeffs, device="cpu") -> "Poly":
+        """Coefficient-order construction from ints (arbitrary precision)."""
+        if len(coeffs) != params.n:
+            raise ValueError(f"{len(coeffs)} coefficients for n={params.n}")
+        planes = residue_planes_from_ints(params, coeffs).astype(np.int64)
+        return Poly(torch.from_numpy(planes).to(device), COEFF, params)
+
     # --------------------------------------------------------------- format
 
     def to_eval(self) -> "Poly":
@@ -62,6 +88,18 @@ class Poly:
         if self.fmt == COEFF:
             return self
         return Poly(ntt_inv_auto(self.data, self.params), COEFF, self.params)
+
+    # ------------------------------------------------------------ accessors
+
+    def coeffs(self) -> list[int]:
+        """Big-int coefficients in [0, q) (host CRT reconstruction)."""
+        arr = self.to_coeff().data.cpu().numpy()
+        p = self.params
+        return [p.reconstruct_coeff(arr[:, j]) for j in range(p.n)]
+
+    def const_coeff(self) -> int:
+        arr = self.to_coeff().data[:, 0].cpu().numpy()
+        return self.params.reconstruct_coeff(arr)
 
     # ----------------------------------------------------------- arithmetic
 
@@ -99,3 +137,43 @@ class Poly:
 
     def __hash__(self):
         return id(self)
+
+    # ------------------------------------------- Evaluable surface (circuits)
+
+    def small_scalar_mul(self, params: RingParams, scalar: list[int]) -> "Poly":
+        return self * scalar_poly(params, scalar, self.data.device)
+
+    def large_scalar_mul(self, params: RingParams, scalar: list[int]) -> "Poly":
+        return self * scalar_poly(params, scalar, self.data.device)
+
+    # ---------------------------------------------------------------- serde
+
+    def to_compact_bytes(self) -> bytes:
+        p = self.params
+        arr = self.data.cpu().numpy().astype(np.uint32)
+        header = _MAGIC + struct.pack(
+            "<BBIIHB", 1, 0 if self.fmt == COEFF else 1, p.n, p.crt_depth, p.crt_bits,
+            p.base_bits,
+        )
+        return header + arr.tobytes()
+
+    @staticmethod
+    def from_compact_bytes(params: RingParams, raw: bytes, device="cpu") -> "Poly":
+        if raw[:4] != _MAGIC:
+            raise ValueError("bad poly magic")
+        ver, fmt_i, n, depth, _crt_bits, _base_bits = struct.unpack("<BBIIHB", raw[4:17])
+        if ver != 1 or n != params.n or depth != params.crt_depth:
+            raise ValueError(f"poly bytes v{ver} n={n} L={depth} do not match {params}")
+        arr = np.frombuffer(raw[17:], dtype=np.uint32).reshape(depth, n).astype(np.int64)
+        return Poly(torch.from_numpy(arr).to(device), COEFF if fmt_i == 0 else EVAL, params)
+
+
+def scalar_poly(params: RingParams, scalar: list[int], device="cpu") -> Poly:
+    """The polynomial with coefficients `scalar` (zero-padded to n): a gate's
+    scalar. Equal to `Poly.from_int_coeffs` of the padded list; only the
+    given coefficients go through the host's big-int reduction."""
+    if len(scalar) > params.n:
+        raise ValueError(f"{len(scalar)} scalar coefficients for n={params.n}")
+    planes = np.zeros((params.crt_depth, params.n), dtype=np.int64)
+    planes[:, : len(scalar)] = residue_planes_from_ints(params, scalar)
+    return Poly(torch.from_numpy(planes).to(device), COEFF, params)

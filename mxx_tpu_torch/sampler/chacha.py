@@ -52,14 +52,15 @@ def _chacha_state(key8: torch.Tensor, counters: torch.Tensor, nonce0: int, nonce
                   nonce2: int) -> list[torch.Tensor]:
     """Final ChaCha20 state words (rounds + feed-forward), each int64[nblocks].
 
-    key8: int64[8]; counters: int64[nblocks]; nonces: ints < 2^32."""
+    key8: int64[8], or int64[nblocks, 8] for a key per block; counters:
+    int64[nblocks]; nonces: ints < 2^32."""
     nb = counters.shape[0]
 
     def full(v):
         return torch.full((nb,), v, dtype=torch.int64, device=counters.device)
 
     init = [full(c) for c in _SIGMA]
-    init += [key8[i].expand(nb) for i in range(8)]
+    init += [key8[..., i].expand(nb) for i in range(8)]
     init += [counters, full(nonce0), full(nonce1), full(nonce2)]
     s = list(init)
     for _ in range(_N_ROUNDS // 2):
@@ -92,6 +93,33 @@ def _keystream_words(key8: torch.Tensor, nwords: int, domain: int) -> torch.Tens
     counters = torch.arange(nblocks, dtype=torch.int64, device=key8.device) & _M32
     blocks = _chacha_blocks_words_major(key8, counters, nblocks >> 32, 0, domain)
     return blocks.reshape(-1)[:nwords]
+
+
+def fold_in_batch(keys: torch.Tensor, datas: torch.Tensor) -> torch.Tensor:
+    """Per-lane `fold_in`: keys int64[nb, 8], datas int64[nb] (< 2^32). Row i
+    is bit-identical to `fold_in(keys[i], datas[i])`."""
+    return _chacha_blocks(keys, datas, 0, 0, _DOMAIN_FOLD)[:, :8]
+
+
+def keystream_words_batch(keys: torch.Tensor, nwords: int, domain: int) -> torch.Tensor:
+    """int64[nb, nwords]: row i is bit-identical to
+    `_keystream_words(keys[i], nwords, domain)` (the same word-major block
+    order), computed as one flat batch of nb * nblocks blocks."""
+    nb = keys.shape[0]
+    nblocks = -(-nwords // 16)
+    lane_keys = keys.repeat_interleave(nblocks, dim=0)  # [nb * nblocks, 8]
+    counters = torch.arange(nblocks, dtype=torch.int64, device=keys.device).repeat(nb)
+    blocks = _chacha_blocks_words_major(lane_keys, counters, 0, 0, domain)  # [16, nb * nblocks]
+    words = blocks.reshape(16, nb, nblocks).transpose(0, 1).reshape(nb, 16 * nblocks)
+    return words[:, :nwords]
+
+
+def random_bits_batch(keys: torch.Tensor, shape: tuple, domain: int | None = None) -> torch.Tensor:
+    """int64[nb, *shape] in [0, 2^32): row i is bit-identical to
+    `random_bits(keys[i], shape)`."""
+    n = math.prod(shape) if shape else 1
+    words = keystream_words_batch(keys, n, _DOMAIN_BITS if domain is None else domain)
+    return words.reshape((keys.shape[0],) + tuple(shape))
 
 
 # ------------------------------------------------------------------ key API

@@ -69,15 +69,27 @@ def gauss_table(sigma: float) -> tuple[np.ndarray, int]:
     return thresholds, fin
 
 
+def _reduce96(bits: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """The 96-bit value of words bits[0], bits[1], bits[2] (most significant
+    first) mod q, one word at a time."""
+    r = bits[0] % qb
+    r = ((r << 32) | bits[1]) % qb
+    return ((r << 32) | bits[2]) % qb
+
+
 def uniform_residues(key: torch.Tensor, shape: tuple, q: torch.Tensor) -> torch.Tensor:
     """Uniform in [0, q_t) per limb: returns int64[L, *shape]."""
     L = q.shape[0]
     bits = chacha.random_bits(key, (3, L) + shape)
-    qb = q.reshape((L,) + (1,) * len(shape))
-    r = bits[0] % qb
-    r = ((r << 32) | bits[1]) % qb
-    r = ((r << 32) | bits[2]) % qb
-    return r
+    return _reduce96(bits, q.reshape((L,) + (1,) * len(shape)))
+
+
+def uniform_residues_batch(keys: torch.Tensor, shape: tuple, q: torch.Tensor) -> torch.Tensor:
+    """Per-lane `uniform_residues`: keys int64[nb, 8] -> int64[nb, L, *shape],
+    row i bit-identical to `uniform_residues(keys[i], shape, q)`."""
+    L = q.shape[0]
+    bits = chacha.random_bits_batch(keys, (3, L) + tuple(shape))  # [nb, 3, L, *shape]
+    return _reduce96(bits.transpose(0, 1), q.reshape((1, L) + (1,) * len(shape)))
 
 
 def _int_to_residues(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
