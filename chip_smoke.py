@@ -33,7 +33,7 @@ no package beside it, a kernel that does not build, launch or agree):
    at shape A (K1, K3, radix chain), preimage-cols/s, GSW ext-prods/s at
    n=2^13, L=8, B=64, each kernel against its plain version at the largest
    transform of the preimage ([10, 1000, 16384]), the two batched BGG passes,
-   and a stage-timed batched encoding pass;
+   and a profiled batched encoding pass, its device time split by stage;
 7. one JSON line of kernels, then the result line.
 """
 
@@ -249,75 +249,64 @@ def drive_bgg(p, dev) -> dict:
     return {"params": p, "circuit": c, "pks": pks, "encs": encs}
 
 
+# the stage of a device kernel: the innermost port module on the Python stack
+# of the op that launched it (the profiler's stack frames, innermost first)
+STAGE_FILES = [
+    ("mxx_tpu_torch/ops/four_step.py", "transforms"),
+    ("mxx_tpu_torch/ops/hybrid_ntt.py", "transforms"),
+    ("mxx_tpu_torch/ring/ntt.py", "transforms"),
+    ("mxx_tpu_torch/ops/decompose.py", "digit_decompose"),
+    ("mxx_tpu_torch/ops/zq_matmul.py", "zq_matmul"),
+    ("mxx_tpu_torch/ops/elementwise.py", "elementwise"),
+]
+NTT_KERNELS = ("four_step_kernel", "radix_ntt_fwd_kernel")
+
+
+def kernel_stage(stack) -> str:
+    for frame in stack:
+        for path, stage in STAGE_FILES:
+            if path in frame:
+                return stage
+    return "other device work"
+
+
 def bgg_stage_breakdown(bgg, timing) -> None:
-    """One batched encoding pass with a synchronize around each stage: the
-    transforms, the digit decomposition, zq_matmul and the elementwise ops
-    of the evaluator; the rest is host time."""
+    """One batched encoding pass under torch.profiler: device time by stage
+    and the device's idle share of the call (an upper bound: the profiler
+    slows the host). The hand-written NTT kernels are launched through
+    ctypes, outside any torch op, so they are found by name."""
     import torch
-
-    from mxx_tpu_torch.circuit import batched_eval
-    from mxx_tpu_torch.matrix import poly_matrix
-    from mxx_tpu_torch.ring import poly
-
-    stages = {"transforms (K1/K2)": 0.0, "digit_decompose": 0.0, "zq_matmul": 0.0,
-              "elementwise": 0.0}
-    patches = [
-        (batched_eval, "ntt_fwd_auto", "transforms (K1/K2)"),
-        (batched_eval, "ntt_inv_auto", "transforms (K1/K2)"),
-        (poly_matrix, "ntt_fwd_auto", "transforms (K1/K2)"),
-        (poly_matrix, "ntt_inv_auto", "transforms (K1/K2)"),
-        (poly, "ntt_fwd_auto", "transforms (K1/K2)"),
-        (poly, "ntt_inv_auto", "transforms (K1/K2)"),
-        (batched_eval, "digit_decompose", "digit_decompose"),
-        (batched_eval, "zq_matmul", "zq_matmul"),
-        (batched_eval, "ew_add", "elementwise"),
-        (batched_eval, "ew_sub", "elementwise"),
-        (batched_eval, "ew_mul", "elementwise"),
-    ]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-
-    def timed(fn, stage):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stages[stage] += time.perf_counter() - t0
-            return out
-        return run
-
-    p, c, encs = bgg["params"], bgg["circuit"], bgg["encs"]
-    batched_eval.eval_batched(c, p, encs[0], encs[1:])  # warm-up
-    try:
-        for mod, name, stage in patches:
-            setattr(mod, name, timed(getattr(mod, name), stage))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batched_eval.eval_batched(c, p, encs[0], encs[1:])
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    parts = ", ".join(f"{k} {v * 1e3:.3f} ms ({v / total:.1%})" for k, v in stages.items())
-    host = total - sum(stages.values())
-    timing("bgg encoding pass, batched, stage-timed (synchronize at each stage)", total * 1e3,
-           "ms", f": {parts}, host and the rest {host * 1e3:.3f} ms ({host / total:.1%})")
-
-    # device busy time by the profiler (which slows the host, so the idle
-    # share it shows is an upper bound)
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from mxx_tpu_torch.circuit.batched_eval import eval_batched
+
+    p, c, encs = bgg["params"], bgg["circuit"], bgg["encs"]
+    eval_batched(c, p, encs[0], encs[1:])  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True,
+                 experimental_config=torch._C._profiler._ExperimentalConfig(verbose=True)) as prof:
         t0 = time.perf_counter()
-        batched_eval.eval_batched(c, p, encs[0], encs[1:])
+        eval_batched(c, p, encs[0], encs[1:])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy = sum(e.time_range.elapsed_us() for e in events) * 1e-6
-    timing("bgg encoding pass, batched, profiled", wall * 1e3, "ms",
-           f": {len(events)} device kernels, device busy {busy * 1e3:.3f} ms, "
-           f"idle {1 - busy / wall:.1%} of the call")
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    device = [e for e in events if e.device_type.name == "CUDA"]
+    busy = sum(e.time_range.elapsed_us() for e in device) * 1e-3
+    stages = dict.fromkeys(["transforms", "digit_decompose", "zq_matmul", "elementwise",
+                            "other device work"], 0.0)
+    stages["transforms"] = sum(e.time_range.elapsed_us() for e in device
+                               if any(k in e.name for k in NTT_KERNELS)) * 1e-3
+    for e in events:
+        if e.device_type.name == "CPU" and e.kernels:
+            stage = kernel_stage(e.stack)
+            stages[stage] += sum(k.duration for k in e.kernels
+                                 if not any(n in k.name for n in NTT_KERNELS)) * 1e-3
+    unattributed = busy - sum(stages.values())
+    parts = ", ".join(f"{k} {v:.3f} ms ({v / wall:.1%})" for k, v in stages.items())
+    timing("bgg encoding pass, batched, profiled", wall, "ms",
+           f": {len(device)} device kernels, device busy {busy:.3f} ms: {parts}, "
+           f"unattributed {unattributed:.3f} ms; device idle {wall - busy:.3f} ms "
+           f"({1 - busy / wall:.1%} of the call)")
 
 
 def main() -> None:

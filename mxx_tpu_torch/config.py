@@ -1,5 +1,5 @@
-"""Environment-variable configuration: the circuit evaluator's knobs, copied
-from `mxx_tpu/config.py` with the same variable names."""
+"""Environment-variable configuration: the circuit evaluator's knob, copied
+from `mxx_tpu/config.py` with the same variable name."""
 
 from __future__ import annotations
 
@@ -9,12 +9,6 @@ import os
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v else default
-
-
-def circuit_parallel_gates(override: int | None = None) -> int:
-    if override is not None:
-        return override
-    return _env_int("MXX_CIRCUIT_PARALLEL_GATES", 8)
 
 
 def circuit_live_bytes_budget() -> int:

@@ -123,14 +123,14 @@ def _std_tables(params, n1: int, inverse: bool):
 def _device_tables(params, n1: int, inverse: bool, device: torch.device, dtype: torch.dtype):
     """(left, twiddle, right, moduli) as tensors on `device` (int64 for the
     plain version, int32 for the kernel), cached on the params."""
-    key = ("four_step", n1, inverse, str(device), dtype)
-    if key not in params._tables:
+    def build():
         arrays = _std_tables(params, n1, inverse) + (params.np_moduli,)
-        params._tables[key] = tuple(
+        return tuple(
             torch.from_numpy(a.astype(np.int64)).to(device=device, dtype=dtype).contiguous()
             for a in arrays
         )
-    return params._tables[key]
+
+    return params._table(("four_step", n1, inverse, str(device), dtype), build)
 
 
 # ------------------------------------------------------------ plain version

@@ -106,16 +106,16 @@ def build() -> float:
 def _device_tables(params, device: torch.device):
     """(psi_rev, Shoup quotients floor(psi_rev 2^32 / q), moduli) as 32-bit
     tensors on `device` (uint32 bits in int32), cached on the params."""
-    key = ("radix_ntt", str(device))
-    if key not in params._tables:
+    def build():
         psi = params.np_psi_rev.astype(np.uint64)
         q = params.np_moduli.astype(np.uint64)
         shoup = (psi << np.uint64(32)) // q[:, None]
-        params._tables[key] = tuple(
+        return tuple(
             torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(device)
             for a in (psi, shoup, q)
         )
-    return params._tables[key]
+
+    return params._table(("radix_ntt", str(device)), build)
 
 
 def check_shape(x: torch.Tensor, params) -> None:
