@@ -29,15 +29,32 @@ no package beside it, a kernel that does not build, launch or agree):
    `eval_batched`, checked batched == sequential, encoding pubkeys == pubkey
    pass, and the decode invariant c = s A - x (s G) exactly, with the
    four-step kernels' launch counters reset before and read after;
-6. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+6. the debug LUT evaluators at the same ring: one level of 8 PubLut gates,
+   batched == sequential, the relation c = s A - y (s G) exact (the
+   sequential pass through RelationCheckingPltEvaluator);
+7. the LWE public-LUT chain of scripts/realistic_scale_run.py at full width
+   (n=2^13, L=8, crt_bits 28, base_bits 14, d=1, error sigma 4.0, trapdoor
+   sigma 4.578, p=7, a 49-entry LUT, Mul -> PubLut -> Mul -> PubLut): the
+   plaintext oracle, the offline pubkey pass, `sample_aux_matrices` and
+   `wait_for_all_writes` into a temporary directory (7.4 GB of K_high; its
+   free space is checked first), the online encoding pass and the
+   masked-rounding decode, with the four-step kernels' launch counters reset
+   before and read after; checked against the oracle, A_LT online ==
+   offline, the error against the q/(2p) budget, and B K_high == target for
+   every stored row; each sub-phase timed after a synchronize (the port's
+   tracing spans, which synchronize when enabled);
+8. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain), preimage-cols/s, GSW ext-prods/s at
    n=2^13, L=8, B=64, each kernel against its plain version at the largest
    transform of the preimage ([10, 1000, 16384]), the two batched BGG passes,
    and a profiled batched encoding pass, its device time split by stage;
-7. one JSON line of kernels, then the result line.
+9. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+   path's count beside it), then the result line.
 """
 
 import json
+import logging
+import math
 import statistics
 import subprocess
 import sys
@@ -46,8 +63,9 @@ from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
-BGG_KEY = bytes([0x13, 0x37, 0xC0, 0xDE] * 8)
+BGG_KEY = bytes([0x13, 0x37, 0xC0, 0xDE] * 8)  # scripts/realistic_scale_run.py's key
 N_BGG_INPUTS = 16
+P_MOD = 7
 
 
 def card_line() -> str:
@@ -246,7 +264,7 @@ def drive_bgg(p, dev) -> dict:
         raise SystemExit("chip_smoke: BGG circuit check failed")
     if counts["fwd"] == 0 or counts["inv"] == 0:
         raise SystemExit("chip_smoke: the BGG phase did not go through both four-step kernels")
-    return {"params": p, "circuit": c, "pks": pks, "encs": encs}
+    return {"params": p, "circuit": c, "pks": pks, "encs": encs, "launches": counts}
 
 
 # the stage of a device kernel: the innermost port module on the Python stack
@@ -309,6 +327,272 @@ def bgg_stage_breakdown(bgg, timing) -> None:
            f"({1 - busy / wall:.1%} of the call)")
 
 
+def mod_p_lut(p):
+    """The 49-entry mod-p LUT x -> (row x, x mod p)."""
+    from mxx_tpu_torch.lookup import PublicLut
+
+    return PublicLut.from_dict(p, {x: (x, x % P_MOD) for x in range(P_MOD * P_MOD)})
+
+
+def mod_p_chain(p):
+    """scripts/realistic_scale_run.py's circuit: Mul -> PubLut -> Mul -> PubLut
+    over the mod-p LUT."""
+    from mxx_tpu_torch.circuit import PolyCircuit
+
+    c = PolyCircuit()
+    ins = c.input(3)
+    lut_id = c.register_public_lut(mod_p_lut(p))
+    t1 = c.public_lookup_gate(c.mul_gate(ins[0], ins[1]), lut_id)
+    c.output([c.public_lookup_gate(c.mul_gate(t1, ins[2]), lut_id)])
+    return c
+
+
+class SpanLog(logging.Handler):
+    """Collects the port's span and event records (utils/tracing.py)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def total_ms(self, name) -> float:
+        return sum(r.elapsed_ms for r in self.records if getattr(r, "span", None) == name)
+
+    def events(self, name) -> list[dict]:
+        return [r.fields for r in self.records if getattr(r, "event", None) == name]
+
+    def __enter__(self):
+        log = logging.getLogger("mxx_tpu_torch")
+        self._saved = (log.level, log.propagate)
+        log.setLevel(logging.INFO)
+        log.propagate = False
+        log.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        log = logging.getLogger("mxx_tpu_torch")
+        log.removeHandler(self)
+        log.setLevel(self._saved[0])
+        log.propagate = self._saved[1]
+
+
+def drive_lwe_lut(p, dev, timing) -> dict:
+    """The LWE public-LUT chain of scripts/realistic_scale_run.py on the
+    port: plaintext oracle, offline pubkey pass, K_high sampling and writes
+    (`sample_aux_matrices`, `wait_for_all_writes`), online encoding pass and
+    the masked-rounding decode; then every stored K_high row is read back
+    (each batch part once) and held to B K_high == target exactly. Returns
+    the K1/K2 launch counts of the chain."""
+    import random
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BGGEncodingSampler, BGGPublicKeySampler
+    from mxx_tpu_torch.lookup import (
+        LWEBGGEncodingPltEvaluator,
+        LWEBGGPubKeyPltEvaluator,
+        PolyPltEvaluator,
+    )
+    from mxx_tpu_torch.lookup.lwe import k_high_checkpoint_prefix
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
+    from mxx_tpu_torch.storage import (
+        init_storage_system,
+        read_matrices_from_multi_batch,
+        wait_for_all_writes,
+    )
+
+    q = p.modulus
+    q_over_p = q // P_MOD
+    k = p.modulus_digits
+    circuit = mod_p_chain(p)
+    rng = random.Random(4242)
+    a, b, c = (rng.randrange(P_MOD) for _ in range(3))
+    expected = ((a * b) % P_MOD) * c % P_MOD
+    plaintexts = [Poly.const(p, v, dev) for v in (a, b, c)]
+    secrets = [UniformSampler(seed=99, device=dev).sample_poly(p, TernaryDist())]
+    pubkeys = BGGPublicKeySampler(BGG_KEY, 1, device=dev).sample(p, b"realistic", [True] * 3)
+    es = BGGEncodingSampler(p, secrets, gauss_sigma=4.0, seed=98)
+    encodings = es.sample(p, pubkeys, plaintexts)
+    trap = TrapdoorSampler(p, 4.578, seed=97, device=dev)
+    td, b0 = trap.trapdoor(p, 1)
+
+    n_luts = circuit.gate_counts()["PubLut"]
+    entries = P_MOD * P_MOD
+    row_bytes = 25 + p.crt_depth * (2 + k) * k * p.n * 4  # one K_high's compact bytes
+    want_bytes = n_luts * entries * row_bytes
+    with tempfile.TemporaryDirectory(prefix="mxx_lwe_lut_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"lwe lut chain: K_high artifacts {n_luts} gates x {entries} rows x "
+              f"{row_bytes} B = {want_bytes} B to {tmp}; free there {free} B", flush=True)
+        if free < 2 * want_bytes:
+            raise SystemExit(f"chip_smoke: {tmp} has {free} B free, under twice the "
+                             f"{want_bytes} B of K_high artifacts the LWE LUT chain writes")
+        init_storage_system(tmp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        four_step.launches.update(fwd=0, inv=0)
+        ms = {}
+
+        def clock(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        pt = clock("plaintext oracle", lambda: circuit.eval(
+            p, Poly.one(p, dev), plaintexts, plt_evaluator=PolyPltEvaluator())[0])
+        pk_eval = LWEBGGPubKeyPltEvaluator(BGG_KEY, trap, b0, td, tmp)
+        out_pk = clock("pubkey pass", lambda: circuit.eval(
+            p, pubkeys[0], pubkeys[1:], plt_evaluator=pk_eval)[0])
+        states = dict(pk_eval.gate_state)
+        with SpanLog() as spans:
+            clock("sample_aux_matrices", lambda: pk_eval.sample_aux_matrices(p))
+            clock("wait_for_all_writes", wait_for_all_writes)
+        c_b = es.secret_vec @ b0
+        enc_eval = LWEBGGEncodingPltEvaluator(BGG_KEY, tmp, c_b)
+        enc = clock("encoding pass", lambda: circuit.eval(
+            p, encodings[0], encodings[1:], plt_evaluator=enc_eval)[0])
+
+        def decode():
+            s_g = es.secret_vec @ PolyMatrix.gadget_matrix(p, 1, dev)
+            diff = enc.vector - es.secret_vec @ enc.pubkey.matrix + s_g.mul_poly_scalar(
+                enc.plaintext)
+            coeff = diff.entry(0, 0).const_coeff()
+            mask = rng.randrange(P_MOD)
+            rounded = (coeff + q_over_p * mask + q_over_p // 2) // q_over_p
+            return min(coeff, q - coeff), rounded % P_MOD == mask
+
+        err, mask_ok = clock("decode", decode)
+        counts = dict(four_step.launches)
+        peak = torch.cuda.max_memory_allocated()
+
+        ok_oracle = pt.const_coeff() == expected and enc.plaintext.const_coeff() == expected
+        ok_alt = enc.pubkey == out_pk
+        budget = q_over_p // 2
+        ok_decode = err < budget and mask_ok
+        # every stored row: B K_high == its target, each batch part read once
+        rows = 0
+        bad = []
+        written = sum(f.stat().st_size for f in Path(tmp).iterdir() if f.suffix == ".bin")
+        parts = sum(1 for f in Path(tmp).iterdir() if f.suffix == ".bin")
+        for (ctx, gate_id, slot), st in states.items():
+            targets = pk_eval._k_high_targets(p, st.plt, st.input_pubkey, st.output_pubkey,
+                                              gate_id, st.lut_id, slot, ctx)
+            by_row = {int(kk): t for (_, (kk, _)), t in zip(st.plt.entries(p), targets)}
+            prefix = k_high_checkpoint_prefix(gate_id, st.lut_id, slot, ctx)
+            for idx, k_high in read_matrices_from_multi_batch(p, tmp, prefix, dev):
+                target = by_row.pop(idx, None)
+                if target is None or k_high.shape != (2 + k, k) or not b0 @ k_high == target:
+                    bad.append((gate_id, idx))
+                rows += 1
+            bad.extend((gate_id, idx) for idx in by_row)  # rows never stored
+            del targets, by_row
+        ok_rows = not bad and rows == n_luts * entries
+        torch.cuda.synchronize()
+    err_bits = math.log2(err) if err else 0.0
+    print(f"lwe lut chain n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits "
+          f"{p.base_bits} d=1 p={P_MOD}, {entries}-entry LUT, {circuit.gate_counts()}: "
+          f"plaintext == oracle {ok_oracle}, A_LT online == offline {ok_alt}, "
+          f"B K_high == target for {rows - len(bad)} of {n_luts * entries} stored rows "
+          f"{ok_rows} (tolerance 0: exact), decode {ok_decode} (error {err} = 2^{err_bits:.2f} "
+          f"under the q/(2p) budget {budget} = 2^{math.log2(budget):.2f}); launches in the "
+          f"chain: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
+    if not all((ok_oracle, ok_alt, ok_rows, ok_decode)):
+        raise SystemExit(f"chip_smoke: LWE LUT chain check failed (bad rows {bad[:5]})")
+
+    cols = sum(r.fields["cols"] for r in spans.records
+               if getattr(r, "span", None) == "lwe_lut.k_high_preimages")
+    writes = spans.events("storage.write_part")
+    write_ms = sum(w["elapsed_ms"] for w in writes)
+    pre_ms = spans.total_ms("lwe_lut.k_high_preimages")
+    d2h_ms = spans.total_ms("storage.device_to_host")
+    ser_ms = spans.total_ms("storage.serialize")
+    for name in ("plaintext oracle", "pubkey pass"):
+        timing(f"lwe lut chain: {name}", ms[name], "ms")
+    timing("lwe lut chain: sample_aux_matrices", ms["sample_aux_matrices"], "ms",
+           f" ({n_luts} gates)")
+    timing("lwe lut chain: target assembly", spans.total_ms("lwe_lut.k_high_targets"), "ms",
+           f" ({n_luts * entries} targets)")
+    timing("lwe lut chain: K_high preimages", cols / pre_ms * 1e3, "preimage-cols/s",
+           f" ({pre_ms:.1f} ms for {cols} cols)")
+    timing("lwe lut chain: device-to-host copy + serialize", d2h_ms + ser_ms, "ms",
+           f" ({want_bytes / (d2h_ms + ser_ms) / 1e6:.3f} GB/s; copy {d2h_ms:.1f} ms, "
+           f"{want_bytes / d2h_ms / 1e6:.3f} GB/s; serialize {ser_ms:.1f} ms, "
+           f"{want_bytes / ser_ms / 1e6:.3f} GB/s)")
+    timing("lwe lut chain: disk write, summed over writer threads", write_ms, "ms",
+           f" ({written} B in {parts} batch files, {written / write_ms / 1e6:.3f} GB/s "
+           f"per thread; wait_for_all_writes {ms['wait_for_all_writes']:.1f} ms)")
+    timing("lwe lut chain: encoding pass", ms["encoding pass"], "ms")
+    timing("lwe lut chain: decode", ms["decode"], "ms")
+    print(f"lwe lut chain: bytes written {written} (reckoned {want_bytes} of payloads)",
+          flush=True)
+    timing("lwe lut chain: peak device memory", peak / 1e9, "GB")
+    if counts["fwd"] == 0 or counts["inv"] == 0:
+        raise SystemExit("chip_smoke: the LWE LUT chain did not go through both four-step kernels")
+    return counts
+
+
+def drive_debug_lut(p, dev) -> None:
+    """One level of 8 PubLut gates through the debug evaluators: the pubkey
+    and encoding passes sequential and batched, batched == sequential, the
+    sequential encodings through RelationCheckingPltEvaluator and the
+    batched ones checked c = s A - y (s G) exactly."""
+    import torch
+
+    from mxx_tpu_torch.bgg import BGGEncodingSampler, BGGPublicKeySampler
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.circuit.batched_eval import eval_batched
+    from mxx_tpu_torch.lookup import (
+        DebugBGGEncodingPltEvaluator,
+        DebugBGGPubKeyPltEvaluator,
+        PolyPltEvaluator,
+        RelationCheckingPltEvaluator,
+    )
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.sampler import TernaryDist, UniformSampler
+
+    n_lut = 8
+    c = PolyCircuit()
+    ins = c.input(n_lut + 1)
+    lut_id = c.register_public_lut(mod_p_lut(p))
+    c.output([c.public_lookup_gate(c.mul_gate(ins[i], ins[i + 1]), lut_id)
+              for i in range(n_lut)])
+    plain = [Poly.const(p, (3 * i + 2) % P_MOD, dev) for i in range(n_lut + 1)]
+    pks = BGGPublicKeySampler(BGG_KEY, 1, device=dev).sample(p, b"debug_lut", [True] * (n_lut + 1))
+    es = BGGEncodingSampler(p, [UniformSampler(seed=12, device=dev).sample_poly(p, TernaryDist())])
+    encs = es.sample(p, pks, plain)
+    s = es.secret_vec
+    pk_seq = c.eval(p, pks[0], pks[1:], plt_evaluator=DebugBGGPubKeyPltEvaluator(BGG_KEY))
+    pk_bat = eval_batched(c, p, pks[0], pks[1:], DebugBGGPubKeyPltEvaluator(BGG_KEY))
+    enc_seq = c.eval(p, encs[0], encs[1:], plt_evaluator=RelationCheckingPltEvaluator(
+        DebugBGGEncodingPltEvaluator(BGG_KEY, s), s))  # raises on a relation violated
+    enc_bat = eval_batched(c, p, encs[0], encs[1:], DebugBGGEncodingPltEvaluator(BGG_KEY, s))
+    x_out = c.eval(p, Poly.one(p, dev), plain, plt_evaluator=PolyPltEvaluator())
+    s_g = s @ PolyMatrix.gadget_matrix(p, 1, dev)
+    ok_pk = all(a == b for a, b in zip(pk_seq, pk_bat))
+    ok_enc = all(a == b for a, b in zip(enc_seq, enc_bat))
+    ok_keys = all(e.pubkey == k for e, k in zip(enc_bat, pk_bat))
+    ok_rel = all(e.vector == s @ e.pubkey.matrix - s_g.mul_poly_scalar(x) and e.plaintext == x
+                 for e, x in zip(enc_bat, x_out))
+    torch.cuda.synchronize()
+    print(f"debug lut batch n={p.n} L={p.crt_depth}, one level of {n_lut} PubLut gates: "
+          f"pubkeys batched==sequential {ok_pk}, encodings batched==sequential {ok_enc}, "
+          f"encoding pubkeys == pubkey pass {ok_keys}, relation c = s A - y (s G) exact "
+          f"{ok_rel} (tolerance 0: exact; sequential pass through "
+          f"RelationCheckingPltEvaluator)", flush=True)
+    if not all((ok_pk, ok_enc, ok_keys, ok_rel)):
+        raise SystemExit("chip_smoke: debug LUT batch check failed")
+
+
 def main() -> None:
     import torch
 
@@ -324,6 +608,10 @@ def main() -> None:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
+
+    def timing(metric, value, unit, extra=""):
+        print(f"timing: {metric} = {value:.4f} {unit}{extra} [{card}]", flush=True)
+
     shapes = [("A", (8192, 8, 28, 14), 512), ("B", (16384, 10, 24, 12), 64)]
 
     # 1. build
@@ -362,12 +650,17 @@ def main() -> None:
 
     # 5. BGG+ circuit evaluation
     bgg = drive_bgg(RingParams.new(8192, 8, 28, 14), dev)
+    bgg_counts = bgg["launches"]
     torch.cuda.empty_cache()
 
-    # 6. timings
-    def timing(metric, value, unit, extra=""):
-        print(f"timing: {metric} = {value:.4f} {unit}{extra} [{card}]", flush=True)
+    # 6. the debug LUT evaluators, batched, at the same ring
+    drive_debug_lut(RingParams.new(8192, 8, 28, 14), dev)
 
+    # 7. the LWE public-LUT chain at the realistic-scale workload
+    lut_counts = drive_lwe_lut(RingParams.new(8192, 8, 28, 14), dev, timing)
+    torch.cuda.empty_cache()
+
+    # 8. timings
     p = RingParams.new(8192, 8, 28, 14)
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
@@ -412,14 +705,18 @@ def main() -> None:
     tpp = pp.tables(dev)
     xm = residues(pp, (1000,), 5, dev)
     kernels = []
+    # K1/K2: `launches` is the LWE LUT chain's count; each path's own count
+    # (each read around that path alone) is beside it
+    by_path = {d: {"preimage": counts[d], "bgg circuit": bgg_counts[d],
+                   "lwe lut chain": lut_counts[d]} for d in ("fwd", "inv")}
     cases = [
         ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
-         counts["fwd"],
+         lut_counts["fwd"],
          partial(four_step.four_step_ntt_fwd, xm, pp, 128),
          partial(four_step.four_step_ntt_fwd_plain, xm, pp, 128),
          partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 2),
         ("four_step_ntt_inv", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
-         counts["inv"],
+         lut_counts["inv"],
          partial(four_step.four_step_ntt_inv, xm, pp, 128),
          partial(four_step.four_step_ntt_inv_plain, xm, pp, 128),
          partial(ntt.ntt_inv, xm, tpp.psi_inv_rev, tpp.n_inv, tpp.moduli), 2),
@@ -446,6 +743,8 @@ def main() -> None:
         entry = {"name": name, "route": "cuda", "source": f"mxx_tpu_torch/csrc/{source}",
                  "replaces": replaces, "launches": launches, "max_abs_err": err,
                  "ms": ms, "plain_ms": ms_plain}
+        if source == "four_step_ntt.cu":
+            entry["launches_by_path"] = by_path[name[-3:]]
         if chain is not None:
             ms_chain = cuda_ms(chain, 3)
             entry["chain_ms"] = ms_chain

@@ -3,8 +3,9 @@
 The port's counterpart of `mxx_tpu/matrix/poly_matrix.py`: block algebra,
 gadget matrix, G^{-1} decomposition, concat/slice/transpose, the Kronecker
 product, the exact eval-domain matmul and the compact bytes of the JAX
-package (uint32 residues after a 25-byte header). Modulus switching, offload,
-the packed bytes and the tensor-identity products are not ported yet.
+package (uint32 residues after a 25-byte header). Out-of-core matrices are
+in `offload.py`. Modulus switching, the packed bytes and the tensor-identity
+products are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +25,15 @@ from ..ring.params import RingParams
 from ..ring.poly import COEFF, EVAL, Poly, residues_from_int
 
 _MAGIC = b"MXTM"
+
+
+def compact_header(params: RingParams, fmt: str, nrow: int, ncol: int) -> bytes:
+    """The 25-byte header of a matrix's compact bytes; uint32 residues
+    [L, nrow, ncol, n] follow it."""
+    return _MAGIC + struct.pack(
+        "<BBIIIIHB", 1, 0 if fmt == COEFF else 1, nrow, ncol, params.n, params.crt_depth,
+        params.crt_bits, params.base_bits,
+    )
 
 
 @dataclass(frozen=True)
@@ -249,13 +259,8 @@ class PolyMatrix:
     # ---------------------------------------------------------------- serde
 
     def to_compact_bytes(self) -> bytes:
-        p = self.params
         arr = self.data.cpu().numpy().astype(np.uint32)
-        header = _MAGIC + struct.pack(
-            "<BBIIIIHB", 1, 0 if self.fmt == COEFF else 1, self.nrow, self.ncol, p.n,
-            p.crt_depth, p.crt_bits, p.base_bits,
-        )
-        return header + arr.tobytes()
+        return compact_header(self.params, self.fmt, self.nrow, self.ncol) + arr.tobytes()
 
     @staticmethod
     def from_compact_bytes(params: RingParams, raw: bytes, device="cpu") -> "PolyMatrix":
@@ -266,6 +271,7 @@ class PolyMatrix:
         )
         if ver != 1 or n != params.n or depth != params.crt_depth:
             raise ValueError(f"matrix bytes v{ver} n={n} L={depth} do not match {params}")
-        arr = np.frombuffer(raw[25:], dtype=np.uint32).reshape(depth, nrow, ncol, n)
-        data = torch.from_numpy(arr.astype(np.int64)).to(device)
-        return PolyMatrix(data, COEFF if fmt_i == 0 else EVAL, params)
+        # residues are below 2^31: move them as int32 and widen on the device
+        arr = np.frombuffer(raw, dtype=np.int32, count=depth * nrow * ncol * n, offset=25)
+        data = torch.from_numpy(arr.reshape(depth, nrow, ncol, n).copy()).to(device)
+        return PolyMatrix(data.to(torch.int64), COEFF if fmt_i == 0 else EVAL, params)

@@ -70,6 +70,11 @@ class Poly:
         return Poly.const(params, 1, device)
 
     @staticmethod
+    def from_elem_to_constant(params: RingParams, elem, device="cpu") -> "Poly":
+        """Constant polynomial of a `FinRingElem`."""
+        return Poly.const(params, elem.value, device)
+
+    @staticmethod
     def from_int_coeffs(params: RingParams, coeffs, device="cpu") -> "Poly":
         """Coefficient-order construction from ints (arbitrary precision)."""
         if len(coeffs) != params.n:
@@ -100,6 +105,13 @@ class Poly:
     def const_coeff(self) -> int:
         arr = self.to_coeff().data[:, 0].cpu().numpy()
         return self.params.reconstruct_coeff(arr)
+
+    def const_value(self) -> int:
+        """Value of a CONSTANT polynomial without a transform: a constant has
+        its value in every EVAL slot and in COEFF coefficient 0, so either
+        format reads column 0 (one small device-to-host read for a poly on a
+        card). Callers must know the poly is constant (LUT inputs are)."""
+        return self.params.reconstruct_coeff(self.data[:, 0].cpu().numpy())
 
     # ----------------------------------------------------------- arithmetic
 

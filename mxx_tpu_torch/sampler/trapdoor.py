@@ -49,8 +49,11 @@ whose distance from the exact D_{Z,sigma} is quantified per path:
   parameter search targets, and identical in kind (float rounding, not
   algorithm) to the reference's own floating-point perturbation chain.
 
-The batched, extended and mesh-sharded preimage entry points are not ported
-yet.
+Batched entry points: `preimage_batched_sharded` concatenates many
+requests' columns into one preimage call on one device (the JAX package's
+mesh sharding of that call is not ported: a mesh raises),
+`preimage_batched_chunked` runs it in request chunks and rehydrates
+offloaded targets chunk by chunk, and `preimage_extend` solves [B | C] x = U.
 """
 
 from __future__ import annotations
@@ -61,7 +64,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import config
 from ..matrix import PolyMatrix
+from ..matrix.offload import OffloadedMatrix
 from ..ring.params import RingParams
 from ..ring.poly import COEFF
 from ..utils.numth import modinv
@@ -353,3 +358,61 @@ class TrapdoorSampler:
         key = chacha.fold_in(chacha.fold_in(self._key, self._ctr), 0)
         return _preimage_core(params, key, target.to_eval(), r_e, e_e, pub, sqrt_var, upd,
                               sigma=self.sigma, c=self.c, s=s)
+
+    def preimage_batched_sharded(self, params: RingParams, trapdoor: Trapdoor,
+                                 public_matrix: PolyMatrix, targets: list[PolyMatrix],
+                                 mesh=None) -> list[PolyMatrix]:
+        """Many preimage requests as ONE preimage call over their
+        concatenated columns (column blocks are independent), split back per
+        request. One device: the JAX package shards this call's columns over
+        a device mesh, which is not ported, so a `mesh` raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "preimage_batched_sharded runs on one device; sharding over a mesh is not "
+                "ported (ROADMAP Queue 1, item 9)")
+        if not targets:
+            raise ValueError("preimage_batched_sharded requires targets")
+        combined = targets[0].to_eval().concat_columns(targets[1:])
+        out = self.preimage(params, trapdoor, public_matrix, combined)
+        outs = []
+        start = 0
+        for t in targets:
+            outs.append(out.slice_columns(start, start + t.ncol))
+            start += t.ncol
+        return outs
+
+    def preimage_batched_chunked(self, params: RingParams, trapdoor: Trapdoor,
+                                 public_matrix: PolyMatrix, targets: list, mesh=None,
+                                 chunk: int | None = None) -> list[PolyMatrix]:
+        """`preimage_batched_sharded` in chunks of `chunk` requests (default
+        LUT_PREIMAGE_CHUNK_SIZE), so the preimage's intermediates stay within
+        device memory at large ring dimension. The tail chunk is not padded:
+        49 requests at chunk 16 are calls of 16, 16, 16 and 1.
+
+        Targets may be `matrix.offload.OffloadedMatrix` entries (host/disk
+        memmaps): they rehydrate chunk by chunk onto the public matrix's
+        device, so an out-of-core offline plane streams through the device
+        one request chunk at a time."""
+        chunk = chunk or config.lut_preimage_chunk_size()
+        device = public_matrix.data.device
+        outs: list[PolyMatrix] = []
+        for i in range(0, len(targets), chunk):
+            hydrated = [t.load(device) if isinstance(t, OffloadedMatrix) else t
+                        for t in targets[i : i + chunk]]
+            outs.extend(self.preimage_batched_sharded(params, trapdoor, public_matrix, hydrated,
+                                                      mesh=mesh))
+        return outs
+
+    def preimage_extend(self, params: RingParams, trapdoor: Trapdoor, public_matrix: PolyMatrix,
+                        ext_matrix: PolyMatrix, target: PolyMatrix) -> PolyMatrix:
+        """x with [public_matrix | ext_matrix] @ x == target (Algorithm 5 of
+        eprint 2017/601): the lower block is Gaussian at the smoothing
+        width, the upper block a preimage of what remains."""
+        d = public_matrix.nrow
+        k = params.modulus_digits
+        s = preimage_smoothing_parameter(self.base, self.sigma, d, params.n, k)
+        pre_right = self._uniform.sample_uniform(params, ext_matrix.ncol, target.ncol,
+                                                 GaussDist(s))
+        t = target - ext_matrix @ pre_right
+        pre_left = self.preimage(params, trapdoor, public_matrix, t)
+        return pre_left.concat_rows([pre_right])
