@@ -43,12 +43,27 @@ no package beside it, a kernel that does not build, launch or agree):
    offline, the error against the q/(2p) budget, and B K_high == target for
    every stored row; each sub-phase timed after a synchronize (the port's
    tracing spans, which synchronize when enabled);
-8. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+8. Diamond witness encryption at the same ring (injector input_count 2,
+   base 2, batch_bits 1, trapdoor sigma 4.578, error sigma 4.0; 2 witness
+   bits, the circuit OR(w0, w1) with one instance bit): `enc` of False and
+   of True, each with a fresh injector into its own temporary directory
+   (about 4.2 GB of artifacts, deleted after its checks), then `dec` with
+   the witness [False, True]; checked: both messages decode (margins
+   printed), every final injector state of the first encryption within its
+   simulated error bound and below q/4, every state and read preimage on the
+   card; preprocess, trapdoor, preimage, artifact-write, output-preimage,
+   online and decode times;
+9. AKY24 functional encryption at the same ring (8 message bits, error
+   sigma 3.0, f = x0^x1^(x2&x3)^(x4|x5)^(x6&x7)): setup, keygen, and enc and
+   dec of four messages with f = 0 and f = 1; checked: each decode equals
+   f(x), B K_f == A_f G^{-1}((q/2) e_last) exactly; K1 and K2 launched in
+   each of phases 8 and 9 (counters reset before, read after);
+10. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain), preimage-cols/s, GSW ext-prods/s at
    n=2^13, L=8, B=64, each kernel against its plain version at the largest
    transform of the preimage ([10, 1000, 16384]), the two batched BGG passes,
    and a profiled batched encoding pass, its device time split by stage;
-9. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+11. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
    path's count beside it), then the result line.
 """
 
@@ -593,6 +608,268 @@ def drive_debug_lut(p, dev) -> None:
         raise SystemExit("chip_smoke: debug LUT batch check failed")
 
 
+def max_centered(p, m) -> int:
+    """max |c| over every coefficient c of m, centered mod q. Garner's
+    mixed-radix digits (exact int64 on the device) rank the coefficients by
+    a float64 magnitude; the largest is then reconstructed exactly."""
+    import torch
+
+    x = m.to_coeff().data.reshape(p.crt_depth, -1)
+    qs = [int(v) for v in p.moduli]
+
+    def magnitude(r):
+        digits = [r[0]]
+        for i in range(1, len(qs)):
+            t = r[i]
+            for j in range(i):
+                t = (t - digits[j] % qs[i]) * pow(qs[j], -1, qs[i]) % qs[i]
+            digits.append(t)
+        radix = [float(math.prod(qs[:i])) for i in range(len(qs))]
+        return sum(d.to(torch.float64) * w for d, w in zip(digits, radix))
+
+    neg = (-x) % p.tables(x.device).moduli[:, None]
+    mag = torch.minimum(magnitude(x), magnitude(neg))
+    at = int(torch.argmax(mag))
+    v = p.reconstruct_coeff(x[:, at].cpu().numpy())
+    return min(v, p.modulus - v)
+
+
+def decode_margin(q: int, coeff: int) -> str:
+    """A decoded coefficient's distance from the nearer decision boundary
+    (q/4 or 3q/4) of the protocols' bit decode, and from the nearer ideal
+    value (0 or q/2): its error."""
+    margin = min(abs(coeff - q // 4), abs(coeff - 3 * (q // 4)))
+    error = min(coeff, q - coeff, abs(coeff - q // 2))
+    return (f"margin 2^{math.log2(max(margin, 1)):.4f} (error 2^{math.log2(max(error, 1)):.2f}) "
+            f"of q/4 = 2^{math.log2(q // 4):.4f}")
+
+
+def instrument(obj, name: str, log: dict, label: str, size=None) -> None:
+    """Wrap obj.name: each call synchronizes the card before and after, and
+    appends (ms, size(args, result)) to log[label]."""
+    import torch
+
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.setdefault(label, []).append(
+            ((time.perf_counter() - t0) * 1e3, size(args, out) if size else 0))
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def we_encryption(p, dev, msg: bool, check_states: bool, timing) -> bool:
+    """One Diamond WE encryption of `msg` through `enc` and `dec` with the
+    witness [False, True], in its own temporary directory (deleted when its
+    checks are done); with `check_states`, every final injector state is
+    held to its simulated error bound. Prints its checks and times and
+    returns whether they held."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.input_injector import DiamondInjector
+    from mxx_tpu_torch.input_injector.simulation import simulate_output_error_bounds
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.we import DiamondWE
+
+    q = p.modulus
+    circuit = PolyCircuit()
+    ins = circuit.input(3)
+    circuit.output([circuit.or_gate(ins[0], ins[1])])
+    witness = [False, True]
+    k_bytes = 25 + p.crt_depth * 36 * 36 * p.n * 4  # one transition K at d=1, k=16
+    log: dict = {}
+    on_card = []  # every read matrix and every state: on the card?
+    with tempfile.TemporaryDirectory(prefix="mxx_diamond_we_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < 2 * 13 * k_bytes:
+            raise SystemExit(f"chip_smoke: {tmp} has {free} B free, under twice the "
+                             f"~{13 * k_bytes} B of one WE encryption's artifacts")
+        injector = DiamondInjector(p, 2, 2, 1, 4.578, 4.0, seed=4090 + msg, device=dev)
+        we = DiamondWE(injector, 2, tmp, b"diamond_we_chip", seed=4091 + msg)
+        instrument(injector._trap, "trapdoor", log, "trapdoor")
+        peaks = []  # peak device memory after each transition preimage call
+        instrument(injector._trap, "preimage_batched_chunked", log, "transition preimages",
+                   lambda a, out: peaks.append(torch.cuda.max_memory_allocated())
+                   or sum(t.ncol for t in a[3]))
+        instrument(injector, "_write_matrix", log, "write",
+                   lambda a, out: injector._mpath(a[0], a[1]).stat().st_size)
+        instrument(injector, "read_matrix", log, "read",
+                   lambda a, out: on_card.append(out.data.is_cuda)
+                   or injector._mpath(a[0], a[1]).stat().st_size)
+        instrument(injector, "online_eval", log, "online_eval",
+                   lambda a, out: on_card.extend(s.data.is_cuda for s in out) or out)
+        instrument(we._trap, "preimage", log, "output preimages", lambda a, out: a[3].ncol)
+        instrument(we, "_read", log, "preimage reads",
+                   lambda a, out: on_card.append(out.data.is_cuda) or 0)
+        instrument(circuit, "eval", log, "circuit eval")
+        instrument(we, "_noisy_coeff", log, "noisy", lambda a, out: out)
+        with SpanLog() as spans:
+            t0 = time.perf_counter()
+            ct = we.enc(msg, circuit, [False])
+            torch.cuda.synchronize()
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            artifacts = sum(f.stat().st_size for f in Path(tmp).iterdir())
+            t0 = time.perf_counter()
+            got = we.dec(ct, witness)
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3
+        totals = {label: (sum(ms for ms, _ in calls), len(calls),
+                          sum(s for _, s in calls) if label != "online_eval" else 0)
+                  for label, calls in log.items()}
+        states = log["online_eval"][0][1]
+        # 6 K chain reads (p_eps, 2 + 3 K), 3 states, 5 output preimages
+        n_card = len(on_card)
+        ok_card = all(on_card) and n_card == 6 + 3 + 5
+        bounds = []
+        if check_states:
+            digits = we._pack_witness_digits(witness)
+            sigma = injector.debug_final_secret_matrix(tmp, digits).entry(0, 0)
+            sim = simulate_output_error_bounds(injector)
+            for i, state in enumerate(states):
+                # state 0 carries k (0 for msg False), bit state i the bit of digit i-1
+                x = (Poly.const(p, q // 2, dev) if msg else Poly.zero(p, device=dev)) if i == 0 \
+                    else sigma * Poly.const(p, injector.digit_bit_value(digits[i - 1], 0), dev)
+                want = PolyMatrix.from_poly_row(p, [sigma, x]) @ ct.preprocess_out.final_pub_matrices[i]
+                err = max_centered(p, state - want)
+                bound = int(sim.state_errors[i].poly_norm.norm)
+                bounds.append((err, bound, 0 < err <= bound < q // 4))
+        del states, ct
+        torch.cuda.synchronize()
+    ok = got == msg and ok_card and all(b[2] for b in bounds)
+    print(f"diamond we n={p.n} L={p.crt_depth} msg {msg}: decode {got} == msg {got == msg}, "
+          f"{decode_margin(q, log['noisy'][0][1])}; states and read preimages on the card "
+          f"{ok_card} ({n_card} checked)" + "".join(
+              f"; state {i}: error {e} = 2^{math.log2(max(e, 1)):.2f} <= simulated bound {b} = "
+              f"2^{math.log2(b):.2f} < q/4 {good}" for i, (e, b, good) in enumerate(bounds)),
+          flush=True)
+    tag = f"diamond we (msg {msg})"
+    tr_ms, tr_n, _ = totals["trapdoor"]
+    pi_ms, pi_n, pi_cols = totals["transition preimages"]
+    wr_ms, wr_n, wr_bytes = totals["write"]
+    op_ms, op_n, op_cols = totals["output preimages"]
+    on_ms, _, _ = totals["online_eval"]
+    rd_ms, rd_n, rd_bytes = totals["read"]
+    (pk_eval_ms, _), (enc_eval_ms, _) = log["circuit eval"]
+    timing(f"{tag}: enc", enc_ms, "ms", f" ({artifacts} B of artifacts)")
+    timing(f"{tag}: preprocess", spans.total_ms("diamond_injector.preprocess"), "ms")
+    timing(f"{tag}: trapdoor sampling", tr_ms, "ms", f" ({tr_n} trapdoors)")
+    timing(f"{tag}: transition preimages", pi_cols / pi_ms * 1e3, "preimage-cols/s",
+           f" ({pi_ms:.1f} ms, {pi_n} calls, {pi_cols} cols; peak device memory after each "
+           f"call " + ", ".join(f"{v / 1e9:.4f}" for v in peaks) + " GB)")
+    timing(f"{tag}: _write_matrix", wr_ms, "ms",
+           f" ({wr_bytes} B in {wr_n} matrices, {wr_bytes / wr_ms / 1e6:.3f} GB/s)")
+    timing(f"{tag}: pubkey circuit eval", pk_eval_ms, "ms")
+    timing(f"{tag}: output preimages", op_ms, "ms", f" ({op_n} calls, {op_cols} cols)")
+    timing(f"{tag}: dec", dec_ms, "ms")
+    timing(f"{tag}: online_eval", on_ms, "ms",
+           f" ({rd_bytes} B read in {rd_n} matrices, {rd_ms:.1f} ms of it in reads, "
+           f"{rd_bytes / rd_ms / 1e6:.3f} GB/s)")
+    timing(f"{tag}: encoding circuit eval", enc_eval_ms, "ms")
+    timing(f"{tag}: dec after online_eval (projections, circuit eval, decode)",
+           dec_ms - on_ms, "ms")
+    return ok
+
+
+def drive_diamond_we(p, dev, timing) -> dict:
+    """Diamond WE: one encryption of each message, each with a fresh
+    injector, the first one's final states held to their bounds. Returns
+    the K1/K2 launch counts of the phase."""
+    import torch
+
+    from mxx_tpu_torch.ops import four_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timing("diamond we: device memory allocated at the start",
+           torch.cuda.memory_allocated() / 1e9, "GB")
+    four_step.launches.update(fwd=0, inv=0)
+    ok = [we_encryption(p, dev, msg, not msg, timing) for msg in (False, True)]
+    torch.cuda.synchronize()
+    counts = dict(four_step.launches)
+    timing("diamond we: peak device memory", torch.cuda.max_memory_allocated() / 1e9, "GB")
+    print(f"diamond we: launches in the phase: fwd {counts['fwd']}, inv {counts['inv']}",
+          flush=True)
+    if not all(ok):
+        raise SystemExit("chip_smoke: Diamond WE check failed")
+    if counts["fwd"] == 0 or counts["inv"] == 0:
+        raise SystemExit("chip_smoke: the Diamond WE phase did not go through both four-step "
+                         "kernels")
+    return counts
+
+
+def drive_aky24_fe(p, dev, timing) -> dict:
+    """AKY24 FE through setup, keygen, enc and dec of four messages, checked
+    against f(x) and the exact K_f relation. Returns the K1/K2 launch counts
+    of the phase."""
+    import torch
+
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.func_enc import Aky24FuncEnc
+    from mxx_tpu_torch.ops import four_step
+
+    def f(x):
+        return x[0] ^ x[1] ^ (x[2] & x[3]) ^ (x[4] | x[5]) ^ (x[6] & x[7])
+
+    c = PolyCircuit()
+    x = c.input(8)
+    c.output([c.xor_gate(c.xor_gate(c.xor_gate(c.xor_gate(
+        x[0], x[1]), c.and_gate(x[2], x[3])), c.or_gate(x[4], x[5])), c.and_gate(x[6], x[7]))])
+    msgs = [[0] * 8, [1, 0, 0, 0, 0, 0, 0, 0], [0, 1, 1, 1, 1, 0, 1, 1], [1, 1, 0, 1, 0, 1, 1, 0]]
+    want = [f(m) for m in msgs]
+    assert set(want) == {0, 1}
+    q = p.modulus
+    fe = Aky24FuncEnc(msg_bits=8, error_sigma=3.0, seed=4242, device=dev)
+    log: dict = {}
+    instrument(fe, "_noisy_coeff", log, "noisy", lambda a, out: out)
+    ms = {}
+
+    def clock(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    four_step.launches.update(fwd=0, inv=0)
+    _, msk = clock("setup", lambda: fe.setup(p))
+    fsk = clock("keygen", lambda: fe.keygen(p, msk, c))
+    got = []
+    for m in msgs:
+        ct = clock("enc", lambda m=m: fe.enc(p, msk, m))
+        got.append(clock("dec", lambda ct=ct: fe.dec(p, ct, fsk, c)))
+    torch.cuda.synchronize()
+    counts = dict(four_step.launches)
+    pks = fe._pubkeys(p)
+    target = c.eval(p, pks[0], pks[1:])[0].matrix @ fe._decode_selector(p)
+    ok_rel = msk.b_matrix @ fsk.k_f == target
+    ok_card = all(t.data.is_cuda for t in (msk.b_matrix, fsk.k_f, target))
+    print(f"aky24 fe n={p.n} L={p.crt_depth} d=2, 8 inputs, {c.gate_counts()}: decodes {got} "
+          f"== f(x) {want} {got == want}, B K_f == A_f G^-1((q/2) e_last) {ok_rel} "
+          f"(tolerance 0: exact), on the card {ok_card}; decodes: "
+          + "; ".join(decode_margin(q, v) for _, v in log["noisy"])
+          + f"; launches in the phase: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
+    for name, values in ms.items():
+        timing(f"aky24 fe: {name}", statistics.median(values), "ms",
+               f" (median of {len(values)})" if len(values) > 1 else "")
+    if not (got == want and ok_rel and ok_card):
+        raise SystemExit("chip_smoke: AKY24 FE check failed")
+    if counts["fwd"] == 0 or counts["inv"] == 0:
+        raise SystemExit("chip_smoke: the AKY24 FE phase did not go through both four-step "
+                         "kernels")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -660,7 +937,15 @@ def main() -> None:
     lut_counts = drive_lwe_lut(RingParams.new(8192, 8, 28, 14), dev, timing)
     torch.cuda.empty_cache()
 
-    # 8. timings
+    # 8. Diamond witness encryption at the same ring
+    we_counts = drive_diamond_we(RingParams.new(8192, 8, 28, 14), dev, timing)
+    torch.cuda.empty_cache()
+
+    # 9. AKY24 functional encryption at the same ring
+    fe_counts = drive_aky24_fe(RingParams.new(8192, 8, 28, 14), dev, timing)
+    torch.cuda.empty_cache()
+
+    # 10. timings
     p = RingParams.new(8192, 8, 28, 14)
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
@@ -708,7 +993,8 @@ def main() -> None:
     # K1/K2: `launches` is the LWE LUT chain's count; each path's own count
     # (each read around that path alone) is beside it
     by_path = {d: {"preimage": counts[d], "bgg circuit": bgg_counts[d],
-                   "lwe lut chain": lut_counts[d]} for d in ("fwd", "inv")}
+                   "lwe lut chain": lut_counts[d], "diamond we": we_counts[d],
+                   "aky24 fe": fe_counts[d]} for d in ("fwd", "inv")}
     cases = [
         ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
          lut_counts["fwd"],

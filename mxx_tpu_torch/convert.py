@@ -3,7 +3,9 @@
 The functions take and give numpy arrays (`np.asarray` of a jax array is
 one), so this module imports neither jax nor `mxx_tpu`: the tests use it to
 run the port on the JAX package's trapdoor, public matrix, keys, BGG+ public
-keys, encodings and secrets.
+keys, encodings and secrets, a Diamond injector's final checkpoints, Diamond
+WE ciphertexts and the AKY24 FE keys and ciphertexts. Artifact files need no
+bridge: both packages write the same bytes.
 """
 
 from __future__ import annotations
@@ -12,10 +14,13 @@ import numpy as np
 import torch
 
 from .bgg import BggEncoding, BggPublicKey
+from .func_enc import Aky24Ciphertext, Aky24FuncKey, Aky24MasterKey
+from .input_injector import DiamondInjectorPreprocessOut
 from .matrix import PolyMatrix
 from .ring.params import RingParams
 from .ring.poly import Poly
 from .sampler.trapdoor import Trapdoor
+from .we import DiamondWECiphertext
 
 
 def poly_matrix_from_numpy(params: RingParams, arr, fmt: str, device="cpu") -> PolyMatrix:
@@ -66,6 +71,58 @@ def trapdoor_from_numpy(params: RingParams, r, e, fmt: str, device="cpu") -> Tra
         r=poly_matrix_from_numpy(params, r, fmt, device),
         e=poly_matrix_from_numpy(params, e, fmt, device),
     )
+
+
+def preprocess_out_from_numpy(params: RingParams, trapdoors, pub_matrices,
+                              device="cpu") -> DiamondInjectorPreprocessOut:
+    """A Diamond injector's final checkpoints: `trapdoors` as (R, E, fmt)
+    triples and `pub_matrices` as (residues, fmt) pairs, one per final state."""
+    return DiamondInjectorPreprocessOut(
+        [trapdoor_from_numpy(params, r, e, fmt, device) for r, e, fmt in trapdoors],
+        [poly_matrix_from_numpy(params, m, fmt, device) for m, fmt in pub_matrices],
+    )
+
+
+def diamond_we_ciphertext_from_numpy(params: RingParams, circuit, instance, hash_key: bytes,
+                                     trapdoors, pub_matrices,
+                                     device="cpu") -> DiamondWECiphertext:
+    """A Diamond WE ciphertext: the port's copy of its circuit, the instance
+    bits, the hash key and the injector's final checkpoints (as in
+    `preprocess_out_from_numpy`). Its artifact files need no bridge."""
+    return DiamondWECiphertext(
+        circuit, list(instance), bytes(hash_key),
+        preprocess_out_from_numpy(params, trapdoors, pub_matrices, device),
+    )
+
+
+def aky24_master_key_from_numpy(params: RingParams, secrets, trapdoor, b_matrix,
+                                device="cpu") -> Aky24MasterKey:
+    """AKY24 master key: `secrets` as (residues, fmt) pairs, the trapdoor as
+    an (R, E, fmt) triple, B as a (residues, fmt) pair."""
+    return Aky24MasterKey(
+        [poly_from_numpy(params, a, fmt, device) for a, fmt in secrets],
+        trapdoor_from_numpy(params, *trapdoor, device),
+        poly_matrix_from_numpy(params, *b_matrix, device),
+    )
+
+
+def aky24_ciphertext_from_numpy(params: RingParams, encodings, c_b,
+                                device="cpu") -> Aky24Ciphertext:
+    """AKY24 ciphertext: `encodings` as (vector, pubkey matrix,
+    reveal_plaintext, plaintext) tuples, each matrix or poly a (residues,
+    fmt) pair and the plaintext None where it is hidden; c_b a pair."""
+    encs = []
+    for vector, pk_matrix, reveal, plaintext in encodings:
+        pk = public_key_from_numpy(params, *pk_matrix, reveal, device)
+        pt, pt_fmt = plaintext if plaintext is not None else (None, None)
+        encs.append(encoding_from_numpy(params, *vector, pk, pt, pt_fmt, device))
+    return Aky24Ciphertext(encs, poly_matrix_from_numpy(params, *c_b, device))
+
+
+def aky24_func_key_from_numpy(params: RingParams, k_f, fmt: str,
+                              device="cpu") -> Aky24FuncKey:
+    """AKY24 function key K_f from its residues uint32[L, rows, 1, n]."""
+    return Aky24FuncKey(poly_matrix_from_numpy(params, k_f, fmt, device))
 
 
 def key_from_numpy(key, device="cpu") -> torch.Tensor:

@@ -82,6 +82,25 @@ class PolyMatrix:
         return PolyMatrix.from_polys(params, [[p] for p in polys])
 
     @staticmethod
+    def scaled_unit_column_vector(params: RingParams, size: int, index: int,
+                                  scalar: Poly) -> "PolyMatrix":
+        """size x 1 column with `scalar` at row `index`, zero elsewhere (EVAL),
+        on the scalar's device."""
+        if not 0 <= index < size:
+            raise ValueError(f"unit column index {index} out of range for size {size}")
+        s = scalar.to_eval().data
+        data = torch.zeros((params.crt_depth, size, 1, params.n), dtype=torch.int64,
+                           device=s.device)
+        data[:, index, 0, :] = s
+        return PolyMatrix(data, EVAL, params)
+
+    @staticmethod
+    def unit_column_vector(params: RingParams, size: int, index: int,
+                           device="cpu") -> "PolyMatrix":
+        return PolyMatrix.scaled_unit_column_vector(params, size, index,
+                                                    Poly.one(params, device))
+
+    @staticmethod
     def gadget_matrix(params: RingParams, size: int, device="cpu") -> "PolyMatrix":
         """G = I_size tensor g, g the k-digit gadget row vector (EVAL form).
 

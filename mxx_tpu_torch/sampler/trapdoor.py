@@ -111,6 +111,25 @@ class Trapdoor:
     def d_mat(self) -> PolyMatrix:
         return self.e @ self.e.transpose()
 
+    def to_compact_bytes(self) -> bytes:
+        """R and E as compact bytes, each after its 8-byte little-endian length
+        (the JAX package's bytes)."""
+        out = b""
+        for p in (self.r.to_compact_bytes(), self.e.to_compact_bytes()):
+            out += len(p).to_bytes(8, "little") + p
+        return out
+
+    @staticmethod
+    def from_compact_bytes(params: RingParams, raw: bytes, device="cpu") -> "Trapdoor":
+        mats = []
+        off = 0
+        for _ in range(2):
+            ln = int.from_bytes(raw[off : off + 8], "little")
+            off += 8
+            mats.append(PolyMatrix.from_compact_bytes(params, raw[off : off + ln], device))
+            off += ln
+        return Trapdoor(r=mats[0], e=mats[1])
+
 
 def _centered_lift_f64(mat: PolyMatrix) -> torch.Tensor:
     """Centered integer lift of a small-norm matrix as float64 [r, c, n].
