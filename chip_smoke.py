@@ -12,8 +12,9 @@ no package beside it, a kernel that does not build, launch or agree):
 2. the four-step NTT kernels (K1 forward, K2 inverse) against the radix
    chain (whole batch) and the plain four-step (first 8 polys), and the round
    trip, at
-   A: n=2^13, L=8, crt_bits 28, base_bits 14, B=512 (n1 = 64) and
-   B: n=2^14, L=10, crt_bits 24, base_bits 12, B=64 (n1 = 128);
+   A: n=2^13, L=8, crt_bits 28, base_bits 14, B=512 (n1 = 64),
+   B: n=2^14, L=10, crt_bits 24, base_bits 12, B=64 (n1 = 128) and
+   C: the same ring at B=1000, the preimage's largest transform;
 3. the radix-2 kernel's path (K3): `ntt_fwd_head` and `ntt_fwd_hybrid` at
    shapes A and B, with their launch counters reset before and read after,
    then checked against their plain versions, the radix chain and K1;
@@ -59,12 +60,16 @@ no package beside it, a kernel that does not build, launch or agree):
    f(x), B K_f == A_f G^{-1}((q/2) e_last) exactly; K1 and K2 launched in
    each of phases 8 and 9 (counters reset before, read after);
 10. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
-   at shape A (K1, K3, radix chain), preimage-cols/s, GSW ext-prods/s at
-   n=2^13, L=8, B=64, each kernel against its plain version at the largest
-   transform of the preimage ([10, 1000, 16384]), the two batched BGG passes,
-   and a profiled batched encoding pass, its device time split by stage;
+   at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
+   preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
+   B=64, each kernel against its plain version at the largest transform of
+   the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
+   profiled batched encoding pass, its device time split by stage;
 11. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
-   path's count beside it), then the result line.
+   path's count beside it in `launches_by_path`; each kernel's least time
+   `bound_ms`, the larger of its device-memory time and its integer floor,
+   and its share `pct_of_bound`; `library_ms` null, since no PyTorch call
+   computes an exact NTT mod q), then the result line.
 """
 
 import json
@@ -121,6 +126,30 @@ def residues(params, lead, seed, device):
 
 def max_err(a, b) -> int:
     return int((a - b).abs().max())
+
+
+# the least time of an NTT kernel: the larger of its device-memory time
+# (int64 residues read once and written once, 16 bytes each, over the H100
+# SXM's 3.35 TB/s) and its integer floor (each modular product of the
+# butterfly algorithm with its add and subtract, ~8 32-bit instructions,
+# over 64 int32 lanes x 132 SMs x 1.98 GHz = 16.7e12 instructions/s)
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_S = 64 * 132 * 1.98e9
+INSTR_PER_PRODUCT = 8
+
+
+def ntt_products(n: int, span: int, twist: bool = False) -> int:
+    """Modular products per poly of log2(span) radix-2 stages, n/2 each
+    (span = n: the whole transform), plus n twist products."""
+    return n // 2 * (span.bit_length() - 1) + (n if twist else 0)
+
+
+def ntt_bound(shape, products: int) -> dict:
+    polys = math.prod(shape[:-1])
+    bytes_ms = 16 * polys * shape[-1] / HBM_BYTES_PER_S * 1e3
+    int_ms = polys * products * INSTR_PER_PRODUCT / INT32_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, int_ms), "bound_by": "bytes" if bytes_ms >= int_ms
+            else "operations", "bytes_ms": bytes_ms, "int_floor_ms": int_ms}
 
 
 def build_kernels(modules) -> None:
@@ -291,6 +320,8 @@ STAGE_FILES = [
     ("mxx_tpu_torch/ops/decompose.py", "digit_decompose"),
     ("mxx_tpu_torch/ops/zq_matmul.py", "zq_matmul"),
     ("mxx_tpu_torch/ops/elementwise.py", "elementwise"),
+    ("mxx_tpu_torch/sampler/chacha.py", "chacha20"),
+    ("mxx_tpu_torch/sampler/", "samplers (other)"),
 ]
 NTT_KERNELS = ("four_step_kernel", "radix_ntt_fwd_kernel")
 
@@ -303,30 +334,26 @@ def kernel_stage(stack) -> str:
     return "other device work"
 
 
-def bgg_stage_breakdown(bgg, timing) -> None:
-    """One batched encoding pass under torch.profiler: device time by stage
-    and the device's idle share of the call (an upper bound: the profiler
-    slows the host). The hand-written NTT kernels are launched through
-    ctypes, outside any torch op, so they are found by name."""
+def profiled_stages(label, fn, timing) -> None:
+    """One call of fn under torch.profiler, after a warm-up call: device time
+    by stage and the device's idle share of the call (an upper bound: the
+    profiler slows the host). The hand-written NTT kernels are launched
+    through ctypes, outside any torch op, so they are found by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from mxx_tpu_torch.circuit.batched_eval import eval_batched
-
-    p, c, encs = bgg["params"], bgg["circuit"], bgg["encs"]
-    eval_batched(c, p, encs[0], encs[1:])  # warm-up
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_stack=True,
                  experimental_config=torch._C._profiler._ExperimentalConfig(verbose=True)) as prof:
         t0 = time.perf_counter()
-        eval_batched(c, p, encs[0], encs[1:])
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     device = [e for e in events if e.device_type.name == "CUDA"]
     busy = sum(e.time_range.elapsed_us() for e in device) * 1e-3
-    stages = dict.fromkeys(["transforms", "digit_decompose", "zq_matmul", "elementwise",
-                            "other device work"], 0.0)
+    stages = dict.fromkeys([stage for _, stage in STAGE_FILES] + ["other device work"], 0.0)
     stages["transforms"] = sum(e.time_range.elapsed_us() for e in device
                                if any(k in e.name for k in NTT_KERNELS)) * 1e-3
     for e in events:
@@ -336,7 +363,7 @@ def bgg_stage_breakdown(bgg, timing) -> None:
                                  if not any(n in k.name for n in NTT_KERNELS)) * 1e-3
     unattributed = busy - sum(stages.values())
     parts = ", ".join(f"{k} {v:.3f} ms ({v / wall:.1%})" for k, v in stages.items())
-    timing("bgg encoding pass, batched, profiled", wall, "ms",
+    timing(label, wall, "ms",
            f": {len(device)} device kernels, device busy {busy:.3f} ms: {parts}, "
            f"unattributed {unattributed:.3f} ms; device idle {wall - busy:.3f} ms "
            f"({1 - busy / wall:.1%} of the call)")
@@ -895,7 +922,8 @@ def main() -> None:
     build_kernels([four_step, hybrid_ntt])
 
     # 2. K1 and K2 against the radix chain and the plain four-step
-    check_four_step(dev, shapes)
+    check_four_step(dev, shapes + [("C", (16384, 10, 24, 12), 1000)])
+    torch.cuda.empty_cache()
 
     # 3. the radix-2 kernel's path
     radix_counts, radix_err = drive_radix(dev, shapes)
@@ -952,6 +980,15 @@ def main() -> None:
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
     ms_radix = cuda_ms(lambda: hybrid_ntt.ntt_fwd_hybrid(xa, p), 10)
     ms_chain = cuda_ms(lambda: ntt.ntt_fwd(xa, t.psi_rev, t.moduli), 5)
+    ms_inv = cuda_ms(lambda: four_step.four_step_ntt_inv(xa, p, 64), 10)
+    at_a = {}
+    for name, ms in (("four_step_ntt_fwd", ms_kernel), ("four_step_ntt_inv", ms_inv)):
+        bound = ntt_bound(xa.shape, products=ntt_products(p.n, p.n, twist=True))
+        at_a[name] = {"shape": list(xa.shape), "ms": ms, "bound_ms": bound["bound_ms"],
+                      "pct_of_bound": 100 * bound["bound_ms"] / ms}
+        timing(f"{name} {list(xa.shape)}", ms, "ms",
+               f" ({at_a[name]['pct_of_bound']:.1f}% of its bound {bound['bound_ms']:.4f} ms, "
+               f"bound by {bound['bound_by']}; integer floor {bound['int_floor_ms']:.4f} ms)")
     timing("ntt_fwd n=8192 L=8 B=512, four-step kernel (K1)", 8 * 512 / ms_kernel * 1e3,
            "limb-NTTs/s", f" ({ms_kernel:.3f} ms)")
     timing("ntt_fwd n=8192 L=8 B=512, radix-2 kernel ntt_fwd_hybrid (K3)",
@@ -963,6 +1000,8 @@ def main() -> None:
     ms_pre = cuda_ms(lambda: ts.preimage(pp, td, a, target), 3)
     timing("preimage d=1 n=16384 L=10 cols=50", 50 / ms_pre * 1e3, "preimage-cols/s",
            f" ({ms_pre:.1f} ms per call)")
+    profiled_stages("preimage d=1 n=16384 L=10 cols=50, profiled",
+                    lambda: ts.preimage(pp, td, a, target), timing)
 
     pg = RingParams.new(8192, 8, 28, 14)
     us = UniformSampler(seed=4, device=dev)
@@ -982,7 +1021,9 @@ def main() -> None:
         ms = cuda_ms(lambda w=wires: eval_batched(bc, bp, w[0], w[1:]), 3)
         timing(f"bgg {label} pass, batched, n=8192 L=8 d=1, {n_gates} gates", n_gates / ms * 1e3,
                "gates/s", f" ({ms:.1f} ms per pass)")
-    bgg_stage_breakdown(bgg, timing)
+    encs = bgg["encs"]
+    profiled_stages("bgg encoding pass, batched, profiled",
+                    lambda: eval_batched(bc, bp, encs[0], encs[1:]), timing)
     del bgg
     torch.cuda.empty_cache()
 
@@ -1000,22 +1041,24 @@ def main() -> None:
          lut_counts["fwd"],
          partial(four_step.four_step_ntt_fwd, xm, pp, 128),
          partial(four_step.four_step_ntt_fwd_plain, xm, pp, 128),
-         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 2),
+         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 2, ntt_products(pp.n, pp.n, True)),
         ("four_step_ntt_inv", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
          lut_counts["inv"],
          partial(four_step.four_step_ntt_inv, xm, pp, 128),
          partial(four_step.four_step_ntt_inv_plain, xm, pp, 128),
-         partial(ntt.ntt_inv, xm, tpp.psi_inv_rev, tpp.n_inv, tpp.moduli), 2),
+         partial(ntt.ntt_inv, xm, tpp.psi_inv_rev, tpp.n_inv, tpp.moduli), 2,
+         ntt_products(pp.n, pp.n, True)),
         ("ntt_fwd_head", "radix_ntt.cu", "mxx_tpu/ops/pallas_ntt.py:37", radix_counts["head"],
          partial(hybrid_ntt.ntt_fwd_head, xm, pp),
-         partial(hybrid_ntt.ntt_fwd_head_plain, xm, pp), None, 3),
+         partial(hybrid_ntt.ntt_fwd_head_plain, xm, pp), None, 3,
+         ntt_products(pp.n, pp.n // hybrid_ntt.LANE)),
         ("ntt_fwd_hybrid", "radix_ntt.cu", "mxx_tpu/ops/pallas_ntt.py:37",
          radix_counts["hybrid"],
          partial(hybrid_ntt.ntt_fwd_hybrid, xm, pp),
          partial(hybrid_ntt.ntt_fwd_hybrid_plain, xm, pp),
-         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 3),
+         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 3, ntt_products(pp.n, pp.n)),
     ]
-    for name, source, replaces, launches, run, plain, chain, plain_iters in cases:
+    for name, source, replaces, launches, run, plain, chain, plain_iters, products in cases:
         got = run()
         err = max_err(got, plain())
         if chain is not None:
@@ -1025,12 +1068,22 @@ def main() -> None:
         del got
         ms = cuda_ms(run, 10)
         ms_plain = cuda_ms(plain, plain_iters)
-        extra = f" kernel; plain version {ms_plain:.3f} ms"
+        bound = ntt_bound(xm.shape, products)
+        extra = (f" kernel ({100 * bound['bound_ms'] / ms:.1f}% of its bound "
+                 f"{bound['bound_ms']:.4f} ms, bound by {bound['bound_by']}; integer floor "
+                 f"{bound['int_floor_ms']:.4f} ms); plain version {ms_plain:.3f} ms")
         entry = {"name": name, "route": "cuda", "source": f"mxx_tpu_torch/csrc/{source}",
                  "replaces": replaces, "launches": launches, "max_abs_err": err,
-                 "ms": ms, "plain_ms": ms_plain}
+                 "ms": ms, "plain_ms": ms_plain, "bound_ms": bound["bound_ms"],
+                 "bound_by": bound["bound_by"], "bytes_ms": bound["bytes_ms"],
+                 "int_floor_ms": bound["int_floor_ms"],
+                 "pct_of_bound": 100 * bound["bound_ms"] / ms, "library_ms": None,
+                 "library": "none: no PyTorch call computes an exact NTT mod q"}
         if source == "four_step_ntt.cu":
             entry["launches_by_path"] = by_path[name[-3:]]
+            entry["at_shape_a"] = at_a[name]
+        else:  # K3 runs on its own path only
+            entry["launches_by_path"] = {"radix path": launches}
         if chain is not None:
             ms_chain = cuda_ms(chain, 3)
             entry["chain_ms"] = ms_chain

@@ -18,7 +18,7 @@ from .public_key import BggPublicKey
 
 
 class BGGPublicKeySampler:
-    def __init__(self, hash_key: bytes, d: int, device="cpu"):
+    def __init__(self, hash_key: bytes, d: int, device="cuda"):
         if len(hash_key) != 32:
             raise ValueError("hash key must be 32 bytes")
         self.hash_key = hash_key

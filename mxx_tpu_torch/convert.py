@@ -23,7 +23,7 @@ from .sampler.trapdoor import Trapdoor
 from .we import DiamondWECiphertext
 
 
-def poly_matrix_from_numpy(params: RingParams, arr, fmt: str, device="cpu") -> PolyMatrix:
+def poly_matrix_from_numpy(params: RingParams, arr, fmt: str, device="cuda") -> PolyMatrix:
     """uint32[L, r, c, n] residues (a JAX package PolyMatrix's data) -> PolyMatrix."""
     a = np.asarray(arr)
     if a.ndim != 4 or a.shape[0] != params.crt_depth or a.shape[3] != params.n:
@@ -37,7 +37,7 @@ def to_numpy(value: PolyMatrix | Poly) -> np.ndarray:
     return value.data.cpu().numpy().astype(np.uint32)
 
 
-def poly_from_numpy(params: RingParams, arr, fmt: str, device="cpu") -> Poly:
+def poly_from_numpy(params: RingParams, arr, fmt: str, device="cuda") -> Poly:
     """uint32[L, n] residues (a JAX package Poly's data) -> Poly."""
     a = np.asarray(arr)
     if a.shape != (params.crt_depth, params.n):
@@ -45,27 +45,27 @@ def poly_from_numpy(params: RingParams, arr, fmt: str, device="cpu") -> Poly:
     return Poly(torch.from_numpy(a.astype(np.int64)).to(device), fmt, params)
 
 
-def secrets_from_numpy(params: RingParams, arrs, fmt: str, device="cpu") -> list[Poly]:
+def secrets_from_numpy(params: RingParams, arrs, fmt: str, device="cuda") -> list[Poly]:
     """The secret row of a BGG+ encoding sampler, one uint32[L, n] per poly."""
     return [poly_from_numpy(params, a, fmt, device) for a in arrs]
 
 
 def public_key_from_numpy(params: RingParams, matrix, fmt: str, reveal_plaintext: bool,
-                          device="cpu") -> BggPublicKey:
+                          device="cuda") -> BggPublicKey:
     """BGG+ public key from its matrix residues uint32[L, d, m, n]."""
     return BggPublicKey(poly_matrix_from_numpy(params, matrix, fmt, device), reveal_plaintext)
 
 
 def encoding_from_numpy(params: RingParams, vector, vector_fmt: str, pubkey: BggPublicKey,
                         plaintext=None, plaintext_fmt: str | None = None,
-                        device="cpu") -> BggEncoding:
+                        device="cuda") -> BggEncoding:
     """BGG+ encoding from its vector residues uint32[L, 1, m, n], its public
     key and, where it is known, its plaintext residues uint32[L, n]."""
     pt = None if plaintext is None else poly_from_numpy(params, plaintext, plaintext_fmt, device)
     return BggEncoding(poly_matrix_from_numpy(params, vector, vector_fmt, device), pubkey, pt)
 
 
-def trapdoor_from_numpy(params: RingParams, r, e, fmt: str, device="cpu") -> Trapdoor:
+def trapdoor_from_numpy(params: RingParams, r, e, fmt: str, device="cuda") -> Trapdoor:
     """Trapdoor from the residues of R and E (both in format `fmt`)."""
     return Trapdoor(
         r=poly_matrix_from_numpy(params, r, fmt, device),
@@ -74,7 +74,7 @@ def trapdoor_from_numpy(params: RingParams, r, e, fmt: str, device="cpu") -> Tra
 
 
 def preprocess_out_from_numpy(params: RingParams, trapdoors, pub_matrices,
-                              device="cpu") -> DiamondInjectorPreprocessOut:
+                              device="cuda") -> DiamondInjectorPreprocessOut:
     """A Diamond injector's final checkpoints: `trapdoors` as (R, E, fmt)
     triples and `pub_matrices` as (residues, fmt) pairs, one per final state."""
     return DiamondInjectorPreprocessOut(
@@ -85,7 +85,7 @@ def preprocess_out_from_numpy(params: RingParams, trapdoors, pub_matrices,
 
 def diamond_we_ciphertext_from_numpy(params: RingParams, circuit, instance, hash_key: bytes,
                                      trapdoors, pub_matrices,
-                                     device="cpu") -> DiamondWECiphertext:
+                                     device="cuda") -> DiamondWECiphertext:
     """A Diamond WE ciphertext: the port's copy of its circuit, the instance
     bits, the hash key and the injector's final checkpoints (as in
     `preprocess_out_from_numpy`). Its artifact files need no bridge."""
@@ -96,7 +96,7 @@ def diamond_we_ciphertext_from_numpy(params: RingParams, circuit, instance, hash
 
 
 def aky24_master_key_from_numpy(params: RingParams, secrets, trapdoor, b_matrix,
-                                device="cpu") -> Aky24MasterKey:
+                                device="cuda") -> Aky24MasterKey:
     """AKY24 master key: `secrets` as (residues, fmt) pairs, the trapdoor as
     an (R, E, fmt) triple, B as a (residues, fmt) pair."""
     return Aky24MasterKey(
@@ -107,7 +107,7 @@ def aky24_master_key_from_numpy(params: RingParams, secrets, trapdoor, b_matrix,
 
 
 def aky24_ciphertext_from_numpy(params: RingParams, encodings, c_b,
-                                device="cpu") -> Aky24Ciphertext:
+                                device="cuda") -> Aky24Ciphertext:
     """AKY24 ciphertext: `encodings` as (vector, pubkey matrix,
     reveal_plaintext, plaintext) tuples, each matrix or poly a (residues,
     fmt) pair and the plaintext None where it is hidden; c_b a pair."""
@@ -120,12 +120,12 @@ def aky24_ciphertext_from_numpy(params: RingParams, encodings, c_b,
 
 
 def aky24_func_key_from_numpy(params: RingParams, k_f, fmt: str,
-                              device="cpu") -> Aky24FuncKey:
+                              device="cuda") -> Aky24FuncKey:
     """AKY24 function key K_f from its residues uint32[L, rows, 1, n]."""
     return Aky24FuncKey(poly_matrix_from_numpy(params, k_f, fmt, device))
 
 
-def key_from_numpy(key, device="cpu") -> torch.Tensor:
+def key_from_numpy(key, device="cuda") -> torch.Tensor:
     """uint32[8] ChaCha20 key (the JAX package's key array) -> int64[8] key."""
     k = np.asarray(key)
     if k.shape != (8,):

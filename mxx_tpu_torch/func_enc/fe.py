@@ -79,7 +79,7 @@ class Aky24FuncKey:
 
 class Aky24FuncEnc(FuncEnc):
     def __init__(self, msg_bits: int, error_sigma: float = 0.0,
-                 trapdoor_sigma: float = 4.578, seed: int | None = None, device="cpu"):
+                 trapdoor_sigma: float = 4.578, seed: int | None = None, device="cuda"):
         self.msg_bits = msg_bits
         self.error_sigma = error_sigma
         self.trapdoor_sigma = trapdoor_sigma

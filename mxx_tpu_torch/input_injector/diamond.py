@@ -56,7 +56,7 @@ class DiamondInjectorPreprocessOut:
 class DiamondInjector:
     def __init__(self, params, input_count: int, base: int, batch_bits: int,
                  trapdoor_sigma: float, error_sigma: float, seed: int | None = None,
-                 mesh=None, secret_size: int = DIAMOND_SECRET_SIZE, device="cpu"):
+                 mesh=None, secret_size: int = DIAMOND_SECRET_SIZE, device="cuda"):
         if base < (1 << batch_bits):
             raise ValueError("base must be at least 2^batch_bits")
         if mesh is not None:

@@ -47,7 +47,7 @@ def _ctx_tag(context: str) -> str:
 
 
 def derive_a_lt_matrix(params, row_size: int, hash_key: bytes, gate_id: int, slot_idx=None,
-                       context: str = "", device="cpu") -> PolyMatrix:
+                       context: str = "", device="cuda") -> PolyMatrix:
     m_g = row_size * params.modulus_digits
     tag = f"A_LT_{_ctx_tag(context)}{gate_id}_slot{slot_idx or 0}"
     return HashSampler(device).sample_hash(params, hash_key, tag, row_size, m_g, FinRingDist())
@@ -60,7 +60,7 @@ _A_LT_CACHE_LIMIT = 1 << 28  # 256 MB of device tensors; FIFO-evicted
 
 def derive_a_lt_matrices_batch(params, row_size: int, hash_key: bytes, gate_ids: list[int],
                                slot_idx=None, context: str = "",
-                               device="cpu") -> list[PolyMatrix]:
+                               device="cuda") -> list[PolyMatrix]:
     """Many gates' A_LT (EVAL form) in one batch of hash lanes and one
     transform, equal per gate to `derive_a_lt_matrix` (same tags and
     streams). Results are kept in a bounded FIFO cache, since a protocol
@@ -94,7 +94,7 @@ def _k_low_tag(gate_id: int, lut_id: int, lut_entry_idx: int, slot_idx=None,
 
 def derive_k_low(params, row_size: int, hash_key: bytes, gate_id: int, lut_id: int,
                  lut_entry_idx: int, slot_idx=None, context: str = "",
-                 device="cpu") -> PolyMatrix:
+                 device="cuda") -> PolyMatrix:
     m_g = row_size * params.modulus_digits
     raw = HashSampler(device).sample_hash(
         params, hash_key, _k_low_tag(gate_id, lut_id, lut_entry_idx, slot_idx, context),

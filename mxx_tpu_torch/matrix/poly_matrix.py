@@ -45,7 +45,7 @@ class PolyMatrix:
     # ------------------------------------------------------------ construct
 
     @staticmethod
-    def zero(params: RingParams, nrow: int, ncol: int, fmt: str = EVAL, device="cpu") -> "PolyMatrix":
+    def zero(params: RingParams, nrow: int, ncol: int, fmt: str = EVAL, device="cuda") -> "PolyMatrix":
         return PolyMatrix(
             torch.zeros((params.crt_depth, nrow, ncol, params.n), dtype=torch.int64, device=device),
             fmt,
@@ -54,7 +54,7 @@ class PolyMatrix:
 
     @staticmethod
     def identity(params: RingParams, size: int, scalar: Poly | None = None,
-                 device="cpu") -> "PolyMatrix":
+                 device="cuda") -> "PolyMatrix":
         diag = Poly.one(params, device) if scalar is None else scalar.to_eval()
         data = torch.zeros((params.crt_depth, size, size, params.n), dtype=torch.int64,
                            device=diag.data.device)
@@ -96,12 +96,12 @@ class PolyMatrix:
 
     @staticmethod
     def unit_column_vector(params: RingParams, size: int, index: int,
-                           device="cpu") -> "PolyMatrix":
+                           device="cuda") -> "PolyMatrix":
         return PolyMatrix.scaled_unit_column_vector(params, size, index,
                                                     Poly.one(params, device))
 
     @staticmethod
-    def gadget_matrix(params: RingParams, size: int, device="cpu") -> "PolyMatrix":
+    def gadget_matrix(params: RingParams, size: int, device="cuda") -> "PolyMatrix":
         """G = I_size tensor g, g the k-digit gadget row vector (EVAL form).
 
         Entries are constant polys with residues `np_gadget_res[idx, limb]`.
@@ -282,7 +282,7 @@ class PolyMatrix:
         return compact_header(self.params, self.fmt, self.nrow, self.ncol) + arr.tobytes()
 
     @staticmethod
-    def from_compact_bytes(params: RingParams, raw: bytes, device="cpu") -> "PolyMatrix":
+    def from_compact_bytes(params: RingParams, raw: bytes, device="cuda") -> "PolyMatrix":
         if raw[:4] != _MAGIC:
             raise ValueError("bad matrix magic")
         ver, fmt_i, nrow, ncol, n, depth, _crt_bits, _base_bits = struct.unpack(

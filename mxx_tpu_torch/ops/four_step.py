@@ -11,6 +11,12 @@ n = n1 * n2 and a poly viewed as x[n2, n1] (x[i2, i1] = x_flat[i2 * n1 + i1]):
 all mod q, where W2 has bit-reversed rows and W1 bit-reversed columns so that
 X lands in the same bit-reversed EVAL order as ring/ntt.ntt_fwd.
 
+The kernel computes the same function as butterflies (see the note in the
+source): step a is the merged-twist negacyclic NTT of length n2 on each
+column, T one product per element, step c the cyclic NTT of length n1 on
+each row. `_kernel_tables` builds its twiddle tables with their Shoup
+quotients; the dense plain version below is independent of them.
+
 `four_step_ntt_fwd` / `four_step_ntt_inv` launch the kernel for a tensor on
 a CUDA device and take the plain version for a tensor on the CPU; anything
 the kernel does not take raises. `launches` counts kernel launches per
@@ -30,6 +36,9 @@ from . import cuda_build
 
 R32 = 1 << 32
 SOURCE = "four_step_ntt.cu"
+# the shapes the kernel takes: n2 = 128, n1 = n / 128 for 2048 <= n <= 16384
+KERNEL_N2 = 128
+KERNEL_N1 = (16, 32, 64, 128)
 
 # kernel launches per direction; a plain integer each, reset by callers that
 # want to count the launches of one run
@@ -120,17 +129,77 @@ def _std_tables(params, n1: int, inverse: bool):
     return np.stack(left), np.stack(twiddle), np.stack(right)
 
 
-def _device_tables(params, n1: int, inverse: bool, device: torch.device, dtype: torch.dtype):
-    """(left, twiddle, right, moduli) as tensors on `device` (int64 for the
-    plain version, int32 for the kernel), cached on the params."""
+def _device_tables(params, n1: int, inverse: bool, device: torch.device):
+    """(left, twiddle, right, moduli) of the plain version as int64 tensors on
+    `device`, cached on the params."""
     def build():
         arrays = _std_tables(params, n1, inverse) + (params.np_moduli,)
-        return tuple(
-            torch.from_numpy(a.astype(np.int64)).to(device=device, dtype=dtype).contiguous()
-            for a in arrays
-        )
+        return tuple(torch.from_numpy(a.astype(np.int64)).to(device) for a in arrays)
 
-    return params._table(("four_step", n1, inverse, str(device), dtype), build)
+    return params._table(("four_step", n1, inverse, str(device)), build)
+
+
+def _powers(base: int, count: int, q: int) -> np.ndarray:
+    """base^k mod q for k < count, a power of two (int64, q < 2^31)."""
+    out = np.ones(1, dtype=np.int64)
+    step = base % q
+    while out.size < count:
+        out = np.concatenate([out, out * step % q])
+        step = step * step % q
+    return out
+
+
+def _with_shoup(w: np.ndarray, q: int) -> np.ndarray:
+    """Pairs (w, floor(w 2^32 / q)) along a new last axis, uint32."""
+    return np.stack([w, (w << 32) // q], axis=-1).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tables(params, n1: int, inverse: bool):
+    """The kernel's tables, numpy uint32 [L, ..., 2] of (w, floor(w 2^32 / q)),
+    with psi the limb's primitive 2n-th root (that of `_tables`):
+
+    col [L, n2, 2]: psi^(n1 bitrev(k)) at k, the merged-twist table of the
+        negacyclic length-n2 column transform (root psi^n1; entry 0 unused);
+    twist [L, n, 2]: T[r][i1] = psi^((2 bitrev(r) + 1) i1) at r n1 + i1;
+    row [L, n1/2, 2]: w^bitrev(i) with w = psi^(2 n2) and bitrev over
+        log2(n1) - 1 bits, the twiddle of block i of every stage of the
+        cyclic length-n1 row transform.
+
+    The inverse tables hold the inverse powers, and twist holds n^-1 T^-1,
+    so that the inverse needs no scaling pass."""
+    n = params.n
+    n2 = n // n1
+    assert n1 * n2 == n and n1 >= 2 and n1 & (n1 - 1) == 0 and n2 & (n2 - 1) == 0
+    a_bits = n1.bit_length() - 1
+    b_bits = n2.bit_length() - 1
+    sign = -1 if inverse else 1
+    kb = np.array([bit_reverse(k, b_bits) for k in range(n2)], dtype=np.int64)
+    rb = np.array([bit_reverse(i, a_bits - 1) for i in range(n1 // 2)], dtype=np.int64)
+    col_e = sign * n1 * kb % (2 * n)
+    row_e = sign * 2 * n2 * rb % (2 * n)
+    twist_e = (sign * (2 * kb[:, None] + 1) * np.arange(n1)[None, :] % (2 * n)).reshape(-1)
+    col, twist, row = [], [], []
+    for q in params.moduli:
+        pw = _powers(find_primitive_2n_root(q, n), 2 * n, q)
+        t = pw[twist_e]
+        if inverse:
+            t = t * pow(n, -1, q) % q
+        col.append(_with_shoup(pw[col_e], q))
+        twist.append(_with_shoup(t, q))
+        row.append(_with_shoup(pw[row_e], q))
+    return np.stack(col), np.stack(twist), np.stack(row)
+
+
+def _kernel_device_tables(params, n1: int, inverse: bool, device: torch.device):
+    """(col, twist, row, moduli) of the kernel as 32-bit tensors on `device`
+    (uint32 bits in int32), cached on the params."""
+    def build():
+        arrays = _kernel_tables(params, n1, inverse) + (params.np_moduli,)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+                     for a in arrays)
+
+    return params._table(("four_step_kernel", n1, inverse, str(device)), build)
 
 
 # ------------------------------------------------------------ plain version
@@ -155,7 +224,7 @@ def _right(x, w, q):
 def _plain(x: torch.Tensor, params, n1: int, inverse: bool) -> torch.Tensor:
     L, n = x.shape[0], x.shape[-1]
     n2 = n // n1
-    left, twiddle, right, q = _device_tables(params, n1, inverse, x.device, torch.int64)
+    left, twiddle, right, q = _device_tables(params, n1, inverse, x.device)
     q = q.view(L, 1, 1, 1)
     xs = x.reshape(L, -1, n2, n1)
     if inverse:
@@ -205,10 +274,9 @@ def check_shape(x: torch.Tensor, params, n1: int) -> None:
     n = params.n
     if x.ndim < 2 or x.shape[0] != params.crt_depth or x.shape[-1] != n:
         raise ValueError(f"shape {tuple(x.shape)} is not [L={params.crt_depth}, ..., n={n}]")
-    n2 = n // n1 if n1 > 0 else 0
-    if not (n1 * n2 == n and n1 & (n1 - 1) == 0 and n2 & (n2 - 1) == 0
-            and 4 <= n1 <= 256 and 8 <= n2 <= 256 and n <= 16384):
-        raise ValueError(f"four-step kernel bounds: n1={n1}, n2={n2}, n={n}")
+    if not (n1 in KERNEL_N1 and n1 * KERNEL_N2 == n):
+        raise ValueError(f"four-step kernel bounds: n2 = n / n1 = {KERNEL_N2} and n1 in "
+                         f"{KERNEL_N1}, got n1={n1}, n={n}")
     if max(params.moduli) >= 1 << 31:
         raise ValueError("four-step kernel needs q < 2^31")
     if x.numel() // (params.crt_depth * n) >= 1 << 31:
@@ -224,12 +292,14 @@ def _launch(x: torch.Tensor, params, n1: int, inverse: bool) -> torch.Tensor:
     B = x.numel() // (L * n)
     if B == 0:
         return out
-    left, twiddle, right, q = _device_tables(params, n1, inverse, x.device, torch.int32)
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads 16 bytes at a time
+    col, twist, row, q = _kernel_device_tables(params, n1, inverse, x.device)
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), left.data_ptr(), twiddle.data_ptr(),
-                 right.data_ptr(), q.data_ptr(), L, B, n1, n // n1, int(inverse), stream)
+        err = fn(x.data_ptr(), out.data_ptr(), col.data_ptr(), twist.data_ptr(),
+                 row.data_ptr(), q.data_ptr(), L, B, n1, n // n1, int(inverse), stream)
     if err != 0:
         raise RuntimeError(f"four-step NTT kernel launch failed: cudaError {err}")
     launches["inv" if inverse else "fwd"] += 1

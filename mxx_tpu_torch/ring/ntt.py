@@ -152,7 +152,7 @@ def _fused_plan(x: torch.Tensor) -> int | None:
     n = x.shape[-1]
     if n < 2048 or n > 16384 or n & (n - 1):
         return None
-    return n // 128
+    return n // four_step.KERNEL_N2
 
 
 def ntt_fwd_auto(x: torch.Tensor, params) -> torch.Tensor:

@@ -54,28 +54,28 @@ class Poly:
     # ------------------------------------------------------------ construct
 
     @staticmethod
-    def zero(params: RingParams, fmt: str = EVAL, device="cpu") -> "Poly":
+    def zero(params: RingParams, fmt: str = EVAL, device="cuda") -> "Poly":
         return Poly(
             torch.zeros((params.crt_depth, params.n), dtype=torch.int64, device=device), fmt, params
         )
 
     @staticmethod
-    def const(params: RingParams, value: int, device="cpu") -> "Poly":
+    def const(params: RingParams, value: int, device="cuda") -> "Poly":
         """Constant polynomial (value in every EVAL slot)."""
         res = torch.from_numpy(residues_from_int(params, value).astype(np.int64)).to(device)
         return Poly(res[:, None].expand(params.crt_depth, params.n).contiguous(), EVAL, params)
 
     @staticmethod
-    def one(params: RingParams, device="cpu") -> "Poly":
+    def one(params: RingParams, device="cuda") -> "Poly":
         return Poly.const(params, 1, device)
 
     @staticmethod
-    def from_elem_to_constant(params: RingParams, elem, device="cpu") -> "Poly":
+    def from_elem_to_constant(params: RingParams, elem, device="cuda") -> "Poly":
         """Constant polynomial of a `FinRingElem`."""
         return Poly.const(params, elem.value, device)
 
     @staticmethod
-    def from_int_coeffs(params: RingParams, coeffs, device="cpu") -> "Poly":
+    def from_int_coeffs(params: RingParams, coeffs, device="cuda") -> "Poly":
         """Coefficient-order construction from ints (arbitrary precision)."""
         if len(coeffs) != params.n:
             raise ValueError(f"{len(coeffs)} coefficients for n={params.n}")
@@ -170,7 +170,7 @@ class Poly:
         return header + arr.tobytes()
 
     @staticmethod
-    def from_compact_bytes(params: RingParams, raw: bytes, device="cpu") -> "Poly":
+    def from_compact_bytes(params: RingParams, raw: bytes, device="cuda") -> "Poly":
         if raw[:4] != _MAGIC:
             raise ValueError("bad poly magic")
         ver, fmt_i, n, depth, _crt_bits, _base_bits = struct.unpack("<BBIIHB", raw[4:17])
@@ -180,7 +180,7 @@ class Poly:
         return Poly(torch.from_numpy(arr).to(device), COEFF if fmt_i == 0 else EVAL, params)
 
 
-def scalar_poly(params: RingParams, scalar: list[int], device="cpu") -> Poly:
+def scalar_poly(params: RingParams, scalar: list[int], device="cuda") -> Poly:
     """The polynomial with coefficients `scalar` (zero-padded to n): a gate's
     scalar. Equal to `Poly.from_int_coeffs` of the padded list; only the
     given coefficients go through the host's big-int reduction."""

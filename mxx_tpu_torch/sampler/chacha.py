@@ -125,7 +125,7 @@ def random_bits_batch(keys: torch.Tensor, shape: tuple, domain: int | None = Non
 # ------------------------------------------------------------------ key API
 
 
-def key_from_bytes(key_bytes: bytes, device="cpu") -> torch.Tensor:
+def key_from_bytes(key_bytes: bytes, device="cuda") -> torch.Tensor:
     """Wrap a full 32-byte key as an int64[8] key tensor (no entropy loss)."""
     if len(key_bytes) != 32:
         raise ValueError("chacha key must be 32 bytes")
@@ -193,7 +193,7 @@ def normal(key8: torch.Tensor, shape: tuple, dtype: torch.dtype = torch.float32)
     return z[:n].reshape(shape)
 
 
-def self_test_vector(device="cpu") -> bool:
+def self_test_vector(device="cuda") -> bool:
     """RFC 8439 §2.3.2 test vector for the block function."""
     key8 = key_from_bytes(bytes(range(32)), device)
     # RFC nonce = 00:00:00:09:00:00:00:4a:00:00:00:00, counter = 1

@@ -34,13 +34,13 @@ def derive_key_bytes(key: bytes, tag: bytes | str, domain: bytes = b"") -> bytes
     return hashlib.sha256(b"mxx_tpu/v1" + bytes(key) + b"|" + tag + b"|" + domain).digest()
 
 
-def derive_key(key: bytes, tag: bytes | str, domain: bytes = b"", device="cpu") -> torch.Tensor:
+def derive_key(key: bytes, tag: bytes | str, domain: bytes = b"", device="cuda") -> torch.Tensor:
     """Derive a PRNG key from a 32-byte key + tag (+ domain separator); the
     full SHA-256 digest becomes a 256-bit ChaCha20 key."""
     return chacha.key_from_bytes(derive_key_bytes(key, tag, domain), device)
 
 
-def fresh_key(seed: int | bytes | None = None, device="cpu") -> torch.Tensor:
+def fresh_key(seed: int | bytes | None = None, device="cuda") -> torch.Tensor:
     """256-bit-keyspace key: from OS entropy when seed is None, else
     deterministically from the seed (tests / reproducible artifacts)."""
     if seed is None:

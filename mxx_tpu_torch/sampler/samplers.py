@@ -71,7 +71,7 @@ def _lane_planes(col_keys: torch.Tensor, cols: torch.Tensor, dist: DistType, nro
 class HashSampler:
     """Deterministic keyed sampler with exact column windows."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
 
     def sample_hash(self, params: RingParams, key: bytes, tag, nrow: int, ncol: int,
@@ -117,7 +117,7 @@ class HashSampler:
 class UniformSampler:
     """Fresh-randomness sampler; the key is split on every call."""
 
-    def __init__(self, seed: int | None = None, device="cpu"):
+    def __init__(self, seed: int | None = None, device="cuda"):
         self.device = torch.device(device)
         self._key = core.fresh_key(seed, self.device)
 

@@ -120,7 +120,7 @@ class Trapdoor:
         return out
 
     @staticmethod
-    def from_compact_bytes(params: RingParams, raw: bytes, device="cpu") -> "Trapdoor":
+    def from_compact_bytes(params: RingParams, raw: bytes, device="cuda") -> "Trapdoor":
         mats = []
         off = 0
         for _ in range(2):
@@ -316,7 +316,7 @@ def _preimage_core(params: RingParams, key: torch.Tensor, target: PolyMatrix,
 class TrapdoorSampler:
     """MP12 trapdoor sampler on one device."""
 
-    def __init__(self, params: RingParams, sigma: float, seed: int | None = None, device="cpu"):
+    def __init__(self, params: RingParams, sigma: float, seed: int | None = None, device="cuda"):
         self.device = torch.device(device)
         self.sigma = sigma
         self.base = 1 << params.base_bits

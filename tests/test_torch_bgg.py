@@ -87,7 +87,7 @@ def test_uniform_residues_batch_equal():
 @pytest.mark.parametrize("dist,jdist", DISTS)
 def test_hash_sampler_matrices_and_windows_equal(dist, jdist):
     p, jp = _params()
-    hs, jhs = HashSampler(), JaxHashSampler()
+    hs, jhs = HashSampler(device="cpu"), JaxHashSampler()
     full = hs.sample_hash(p, KEY, b"tag", 2, 5, dist)
     _eq(full, jhs.sample_hash(jp, KEY, b"tag", 2, 5, jdist))
     window = hs.sample_hash_columns(p, KEY, b"tag", 2, 5, 1, 3, dist)
@@ -102,12 +102,12 @@ def test_hash_sampler_matrices_and_windows_equal(dist, jdist):
 def test_hash_sampler_batch_equal(eval_form, dist, jdist):
     p, jp = _params()
     tags = [b"a", b"bb", "c", b"a"]
-    mine = HashSampler().sample_hash_batch(p, KEY, tags, 1, 3, dist, eval_form=eval_form)
+    mine = HashSampler(device="cpu").sample_hash_batch(p, KEY, tags, 1, 3, dist, eval_form=eval_form)
     theirs = JaxHashSampler().sample_hash_batch(jp, KEY, tags, 1, 3, jdist, eval_form=eval_form)
     assert len(mine) == len(theirs) == 4
     for m, t, tag in zip(mine, theirs, tags):
         _eq(m, t)
-        single = HashSampler().sample_hash(p, KEY, tag, 1, 3, dist)
+        single = HashSampler(device="cpu").sample_hash(p, KEY, tag, 1, 3, dist)
         assert m == single
 
 
@@ -117,7 +117,7 @@ def test_hash_sampler_batch_equal(eval_form, dist, jdist):
 def test_poly_constructors_accessors_and_bytes_equal():
     p, jp = _params()
     coeffs = [(-1) ** i * (i * 7919 + 2**70) for i in range(p.n)]
-    mine = Poly.from_int_coeffs(p, coeffs)
+    mine = Poly.from_int_coeffs(p, coeffs, device="cpu")
     theirs = JaxPoly.from_int_coeffs(jp, coeffs)
     _eq(mine, theirs)
     assert mine.coeffs() == theirs.coeffs()
@@ -127,14 +127,14 @@ def test_poly_constructors_accessors_and_bytes_equal():
     for poly, jpoly in [(mine, theirs), (mine.to_eval(), theirs.to_eval())]:
         raw = poly.to_compact_bytes()
         assert raw == jpoly.to_compact_bytes()
-        _eq(Poly.from_compact_bytes(p, raw), JaxPoly.from_compact_bytes(jp, raw))
+        _eq(Poly.from_compact_bytes(p, raw, device="cpu"), JaxPoly.from_compact_bytes(jp, raw))
     with pytest.raises(ValueError):
-        Poly.from_int_coeffs(p, coeffs[:-1])
+        Poly.from_int_coeffs(p, coeffs[:-1], device="cpu")
 
 
 def test_poly_matrix_operations_equal():
     p, jp = _params()
-    us, jus = UniformSampler(3), JaxUniformSampler(3)
+    us, jus = UniformSampler(3, device="cpu"), JaxUniformSampler(3)
     polys = [us.sample_poly(p, FinRingDist()) for _ in range(4)]
     jpolys = [jus.sample_poly(jp, jax_dist.FinRingDist()) for _ in range(4)]
     mixed, jmixed = [polys[0], polys[1].to_eval()], [jpolys[0], jpolys[1].to_eval()]
@@ -149,14 +149,14 @@ def test_poly_matrix_operations_equal():
     _eq(a.mul_poly_scalar(polys[0]), ja.mul_poly_scalar(jpolys[0]))
     _eq(a * 12345, ja * 12345)
     _eq(a * a, ja * ja)
-    g = PolyMatrix.gadget_matrix(p, 2)
+    g = PolyMatrix.gadget_matrix(p, 2, device="cpu")
     jg = JaxPolyMatrix.gadget_matrix(jp, 2)
     _eq(g.mul_decompose(a), jg.mul_decompose(ja))
     assert g.mul_decompose(a) == a
     for m, jm in [(a, ja), (a.to_eval(), ja.to_eval())]:
         raw = m.to_compact_bytes()
         assert raw == jm.to_compact_bytes()
-        _eq(PolyMatrix.from_compact_bytes(p, raw), JaxPolyMatrix.from_compact_bytes(jp, raw))
+        _eq(PolyMatrix.from_compact_bytes(p, raw, device="cpu"), JaxPolyMatrix.from_compact_bytes(jp, raw))
 
 
 # ---------------------------------------------------------------------- BGG
@@ -164,7 +164,7 @@ def test_poly_matrix_operations_equal():
 
 def _check_invariant(params, enc, secret_vec, error=None):
     """c == s A - x (s G) (+ e) exactly."""
-    g = PolyMatrix.gadget_matrix(params, secret_vec.ncol)
+    g = PolyMatrix.gadget_matrix(params, secret_vec.ncol, device="cpu")
     want = secret_vec @ enc.pubkey.matrix - (secret_vec @ g).mul_poly_scalar(enc.plaintext)
     if error is not None:
         want = want + error
@@ -182,13 +182,13 @@ def _both_bgg(params, jparams, sigma, n_inputs=3, d=1):
     jencs = JaxBGGEncodingSampler(jparams, jsecrets, gauss_sigma=sigma, seed=8).sample(
         jparams, jpks, jplain)
 
-    us = UniformSampler(seed=5)
+    us = UniformSampler(seed=5, device="cpu")
     own = [us.sample_poly(params, TernaryDist()) for _ in range(d)]
-    secrets = convert.secrets_from_numpy(params, [np.asarray(s.data) for s in jsecrets], COEFF)
+    secrets = convert.secrets_from_numpy(params, [np.asarray(s.data) for s in jsecrets], COEFF, device="cpu")
     for s, o in zip(secrets, own):
         assert s == o
-    plain = [convert.poly_from_numpy(params, np.asarray(x.data), x.fmt) for x in jplain]
-    pks = BGGPublicKeySampler(KEY, d).sample(params, b"bgg", reveal)
+    plain = [convert.poly_from_numpy(params, np.asarray(x.data), x.fmt, device="cpu") for x in jplain]
+    pks = BGGPublicKeySampler(KEY, d, device="cpu").sample(params, b"bgg", reveal)
     for pk, jpk in zip(pks, jpks):
         assert pk.reveal_plaintext == jpk.reveal_plaintext
         _eq(pk.matrix, jpk.matrix)
@@ -211,7 +211,7 @@ def test_bgg_samplers_equal(sigma):
             _check_invariant(p, e, es.secret_vec)
     else:
         # the error is the first draw of the sampler's own key
-        err = UniformSampler(8).sample_uniform(p, 1, 4 * p.modulus_digits, GaussDist(sigma))
+        err = UniformSampler(8, device="cpu").sample_uniform(p, 1, 4 * p.modulus_digits, GaussDist(sigma))
         for i, e in enumerate(encs[:-1]):
             m = p.modulus_digits
             _check_invariant(p, e, es.secret_vec, err.slice_columns(m * i, m * (i + 1)))
@@ -245,7 +245,7 @@ def test_bgg_operations_equal():
                          (pk1.large_scalar_mul(p, [2**33]), j1.pubkey.large_scalar_mul(jp, [2**33]))]:
         _eq(mine.matrix, theirs.matrix)
     jpk = convert.public_key_from_numpy(p, np.asarray(j2.pubkey.matrix.data),
-                                        j2.pubkey.matrix.fmt, j2.pubkey.reveal_plaintext)
+                                        j2.pubkey.matrix.fmt, j2.pubkey.reveal_plaintext, device="cpu")
     carried = convert.encoding_from_numpy(p, np.asarray(j2.vector.data), j2.vector.fmt, jpk,
-                                          np.asarray(j2.plaintext.data), j2.plaintext.fmt)
+                                          np.asarray(j2.plaintext.data), j2.plaintext.fmt, device="cpu")
     assert isinstance(carried, BggEncoding) and carried == e2

@@ -76,8 +76,8 @@ def _inputs(params, jparams, n=N_PAIRS):
     rng = np.random.default_rng(4)
     pub_vals = [int(v) for v in rng.integers(0, 50, size=n)]
     sec_coeffs = [[int(c) for c in rng.integers(-1, 2, size=params.n)] for _ in range(n)]
-    mine = [Poly.const(params, v) for v in pub_vals]
-    mine += [Poly.from_int_coeffs(params, c) for c in sec_coeffs]
+    mine = [Poly.const(params, v, device="cpu") for v in pub_vals]
+    mine += [Poly.from_int_coeffs(params, c, device="cpu") for c in sec_coeffs]
     theirs = [JaxPoly.const(jparams, v) for v in pub_vals]
     theirs += [JaxPoly.from_int_coeffs(jparams, c) for c in sec_coeffs]
     return mine, theirs, [True] * n + [False] * n
@@ -94,7 +94,7 @@ def test_batched_equals_sequential_and_jax(budget):
     jcircuit = _build(JaxPolyCircuit(), jax_secret_inner_product)
     plain, jplain, reveal = _inputs(p, jp)
 
-    pks = BGGPublicKeySampler(KEY, 1).sample(p, b"circuit", reveal)
+    pks = BGGPublicKeySampler(KEY, 1, device="cpu").sample(p, b"circuit", reveal)
     jpks = JaxBGGPublicKeySampler(KEY, 1).sample(jp, b"circuit", reveal)
     seq = circuit.eval(p, pks[0], pks[1:])
     store = []
@@ -106,8 +106,8 @@ def test_batched_equals_sequential_and_jax(budget):
         assert s == b
         _same(b.matrix.to_eval(), j.matrix.to_eval())
 
-    secret = UniformSampler(seed=9).sample_poly(p, TernaryDist())
-    jsecret = convert.poly_from_numpy(p, np.asarray(secret.data), secret.fmt)
+    secret = UniformSampler(seed=9, device="cpu").sample_poly(p, TernaryDist())
+    jsecret = convert.poly_from_numpy(p, np.asarray(secret.data), secret.fmt, device="cpu")
     es = BGGEncodingSampler(p, [jsecret], gauss_sigma=None)
     jes = JaxBGGEncodingSampler(jp, [JaxPoly(np.asarray(convert.to_numpy(secret)), secret.fmt, jp)],
                                 gauss_sigma=None)
@@ -116,8 +116,8 @@ def test_batched_equals_sequential_and_jax(budget):
     seq_e = circuit.eval(p, encs[0], encs[1:])
     bat_e = circuit.eval(p, encs[0], encs[1:], batched=True)
     jbat_e = jax_eval_batched(jcircuit, jp, jencs[0], jencs[1:])
-    x_out = circuit.eval(p, Poly.one(p), plain)  # the plaintext oracle
-    s_g = es.secret_vec @ PolyMatrix.gadget_matrix(p, 1)
+    x_out = circuit.eval(p, Poly.one(p, device="cpu"), plain)  # the plaintext oracle
+    s_g = es.secret_vec @ PolyMatrix.gadget_matrix(p, 1, device="cpu")
     for s, b, j, pk, x in zip(seq_e, bat_e, jbat_e, bat, x_out):
         assert s == b
         assert b.pubkey == pk
@@ -140,10 +140,10 @@ def test_sub_circuit_and_singles_through_batched_walk():
     cid = c.register_sub_circuit(sub)
     outs = c.call_sub_circuit(cid, [a, b])
     c.output(outs + [c.mul_gate(a, b)])
-    pks = BGGPublicKeySampler(KEY, 1).sample(p, b"sub", [True, True])
-    plain = [Poly.const(p, 3), Poly.const(p, 5)]
-    encs = BGGEncodingSampler(p, [Poly.const(p, 1)]).sample(p, pks, plain)
+    pks = BGGPublicKeySampler(KEY, 1, device="cpu").sample(p, b"sub", [True, True])
+    plain = [Poly.const(p, 3, device="cpu"), Poly.const(p, 5, device="cpu")]
+    encs = BGGEncodingSampler(p, [Poly.const(p, 1, device="cpu")]).sample(p, pks, plain)
     for one, ins in [(pks[0], pks[1:]), (encs[0], encs[1:])]:
         assert c.eval(p, one, ins) == c.eval(p, one, ins, batched=True)
-    x_out = c.eval(p, Poly.one(p), plain)
+    x_out = c.eval(p, Poly.one(p, device="cpu"), plain)
     assert [x.const_coeff() for x in x_out] == [18, 2, 15]

@@ -53,7 +53,7 @@ def _xor(cls):
 
 def _port_and_jax(args, error_sigma, seed):
     p, jp = RingParams.new(*args), JaxRingParams.new(*args)
-    return (p, Aky24FuncEnc(2, error_sigma, seed=seed),
+    return (p, Aky24FuncEnc(2, error_sigma, seed=seed, device="cpu"),
             jp, JaxAky24FuncEnc(2, error_sigma, seed=seed))
 
 
@@ -87,7 +87,7 @@ def test_fe_setup_target_encodings_equal(error_sigma):
 @pytest.mark.parametrize("args,error_sigma", [(DEFAULT, 0.0), (NOISY, 3.0)])
 def test_fe_dec_all_inputs(args, error_sigma):
     p = RingParams.new(*args)
-    fe = Aky24FuncEnc(2, error_sigma, seed=102)
+    fe = Aky24FuncEnc(2, error_sigma, seed=102, device="cpu")
     func = _xor(PolyCircuit)
     _, msk = fe.setup(p)
     fsk = fe.keygen(p, msk, func)
@@ -107,9 +107,9 @@ def test_fe_keys_and_ciphertexts_cross_packages():
         p, [_pair(s) for s in jmsk.secrets],
         (np.asarray(jmsk.trapdoor.r.data), np.asarray(jmsk.trapdoor.e.data),
          jmsk.trapdoor.r.fmt),
-        _pair(jmsk.b_matrix),
+        _pair(jmsk.b_matrix), device="cpu",
     )
-    fsk = convert.aky24_func_key_from_numpy(p, *_pair(jfsk.k_f))
+    fsk = convert.aky24_func_key_from_numpy(p, *_pair(jfsk.k_f), device="cpu")
     _eq(msk.b_matrix @ fsk.k_f, jmsk.b_matrix @ jfsk.k_f)
     # a JAX key decodes the port's ciphertexts under the JAX master key
     for b0, b1 in INPUTS:
@@ -122,6 +122,6 @@ def test_fe_keys_and_ciphertexts_cross_packages():
             p,
             [(_pair(e.vector), _pair(e.pubkey.matrix), e.pubkey.reveal_plaintext,
               None if e.plaintext is None else _pair(e.plaintext)) for e in jct.encodings],
-            _pair(jct.c_b),
+            _pair(jct.c_b), device="cpu",
         )
         assert fe.dec(p, ct, own_fsk, func) == b0 ^ b1 == jfe.dec(jp, jct, jfsk, jfunc)

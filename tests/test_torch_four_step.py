@@ -108,6 +108,137 @@ def test_plain_four_step_at_plan_shapes(n):
     assert torch.equal(four_step.four_step_ntt_inv_plain(fwd, p, n1), x)
 
 
+def _shoup(b, t, q):
+    """b * w mod q as the kernel computes it: t = (w, floor(w 2^32 / q)) on
+    the last axis, 32-bit wrap-around emulated in int64 (b, w < q < 2^31)."""
+    w, wq = t[..., 0], t[..., 1]
+    r = (b * w - ((b * wq) >> 32) * q) & 0xFFFFFFFF
+    return torch.where(r >= q, r - q, r)
+
+
+def _stages(v, tw, q, cyclic, inverse):
+    """The kernel's radix-2 stages along the last axis of v [L, P, N]: stage
+    j's block i takes tw[2^j + i] (negacyclic) or tw[i] (cyclic); Cooley-Tukey
+    forward, Gentleman-Sande in the reverse order for the inverse."""
+    L, P, N = v.shape
+    log_n = N.bit_length() - 1
+    for j in (reversed(range(log_n)) if inverse else range(log_n)):
+        m = 1 << j
+        u = v.reshape(L, P, m, 2, N // (2 * m))
+        w = tw[:, torch.arange(m) + (0 if cyclic else m)].reshape(L, 1, m, 1, 2)
+        a, b = u[..., 0, :], u[..., 1, :]
+        if inverse:
+            a, b = (a + b) % q, _shoup((a - b) % q, w, q)
+        else:
+            wb = _shoup(b, w, q)
+            a, b = (a + wb) % q, (a - wb) % q
+        v = torch.stack((a, b), dim=-2).reshape(L, P, N)
+    return v
+
+
+def _schedule(x, p, n1, inverse):
+    """A torch statement of the kernel's schedule over its tables: forward,
+    step a on the columns, the twist, step c on the rows; inverse, the rows,
+    the twist (n^-1 folded in), the columns."""
+    L, n = x.shape[0], x.shape[-1]
+    n2 = n // n1
+    col, twist, row = (_t(a) for a in four_step._kernel_tables(p, n1, inverse))
+    q = _t(p.np_moduli).view(L, 1, 1, 1)
+    xs = x.reshape(L, -1, n2, n1)
+    B = xs.shape[1]
+
+    def columns(v):
+        v = v.transpose(-1, -2).reshape(L, B * n1, n2)
+        v = _stages(v, col, q, cyclic=False, inverse=inverse)
+        return v.reshape(L, B, n1, n2).transpose(-1, -2)
+
+    def rows(v):
+        return _stages(v.reshape(L, B * n2, n1), row, q, cyclic=True,
+                       inverse=inverse).reshape(L, B, n2, n1)
+
+    def twisted(v):
+        return _shoup(v, twist.reshape(L, 1, n2, n1, 2), q)
+
+    out = columns(twisted(rows(xs))) if inverse else rows(twisted(columns(xs)))
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("n", [2048, 8192, 16384])
+def test_kernel_tables_quotients_and_inverses(n):
+    """The kernel's tables: each quotient is floor(w 2^32 / q); the forward
+    twist is the dense T; the inverse tables are the inverse powers, and the
+    inverse twist is n^-1 T^-1."""
+    p = RingParams.new(n, 2, 24, 12)
+    n1 = n // 128
+    fwd = four_step._kernel_tables(p, n1, inverse=False)
+    inv = four_step._kernel_tables(p, n1, inverse=True)
+    assert [a.shape for a in fwd] == [(2, 128, 2), (2, n, 2), (2, n1 // 2, 2)]
+    t_dense = four_step._std_tables(p, n1, inverse=False)[1]
+    for t, q in enumerate(p.moduli):
+        n_inv = pow(n, -1, q)
+        for f, i in zip(fwd, inv):
+            for table in (f[t], i[t]):
+                w = table[..., 0].astype(object)
+                assert np.all(w < q)
+                np.testing.assert_array_equal(table[..., 1].astype(object), (w << 32) // q)
+        for f, i in zip((fwd[0], fwd[2]), (inv[0], inv[2])):
+            assert np.all(f[t, :, 0].astype(object) * i[t, :, 0].astype(object) % q == 1)
+        np.testing.assert_array_equal(fwd[1][t, :, 0].reshape(128, n1), t_dense[t])
+        prod = fwd[1][t, :, 0].astype(object) * inv[1][t, :, 0].astype(object) % q
+        assert np.all(prod == n_inv)
+
+
+@pytest.mark.parametrize("n", [2048, 8192, 16384])
+def test_kernel_schedule_equals_dense_and_jax_chain(n):
+    """At the plan shapes the kernel's schedule over its tables equals the
+    dense plain version and the JAX package's radix chain bit for bit, in
+    both directions."""
+    import mxx_tpu  # noqa: F401
+    import jax.numpy as jnp
+    from mxx_tpu.ring.ntt import ntt_fwd as jax_ntt_fwd
+    from mxx_tpu.ring.ntt import ntt_inv as jax_ntt_inv
+    from mxx_tpu.ring.params import RingParams as JaxRingParams
+
+    args = (n, 2, 24, 12)
+    p, jp = RingParams.new(*args), JaxRingParams.new(*args)
+    jt = jp.jt
+    n1 = n // 128
+    x_np = _residues(p, 2, n + 1)
+    x = _t(x_np)
+    fwd = _schedule(x, p, n1, inverse=False)
+    assert torch.equal(fwd, four_step.four_step_ntt_fwd_plain(x, p, n1))
+    want = np.asarray(jax_ntt_fwd(jnp.asarray(x_np), jt.psi_rev_mont, jt.moduli, jt.qinv_neg))
+    np.testing.assert_array_equal(fwd.numpy(), want.astype(np.int64))
+    back = _schedule(fwd, p, n1, inverse=True)
+    assert torch.equal(back, four_step.four_step_ntt_inv_plain(fwd, p, n1))
+    want_back = np.asarray(jax_ntt_inv(jnp.asarray(want), jt.psi_inv_rev_mont, jt.n_inv_mont,
+                                       jt.moduli, jt.qinv_neg))
+    np.testing.assert_array_equal(back.numpy(), want_back.astype(np.int64))
+    assert torch.equal(back, x)
+
+
+def test_kernel_schedule_equals_pallas_fused():
+    """At n=1024, n1=16 (the fused TPU path needs p_polys n1 <= 128) the
+    kernel's schedule equals the Pallas kernels in interpret mode."""
+    import mxx_tpu  # noqa: F401
+    import jax.numpy as jnp
+    from mxx_tpu.ops.pallas_four_step import four_step_ntt_fwd_fused, four_step_ntt_inv_fused
+    from mxx_tpu.ring.params import RingParams as JaxRingParams
+
+    args = (1024, 2, 28, 14)
+    p, jp = RingParams.new(*args), JaxRingParams.new(*args)
+    x = _residues(p, 4, 8)
+    want = np.asarray(four_step_ntt_fwd_fused(jnp.asarray(x), params=jp, n1=16, p_polys=2,
+                                              interpret=True))
+    fwd = _schedule(_t(x), p, 16, inverse=False)
+    np.testing.assert_array_equal(fwd.numpy(), want.astype(np.int64))
+    want_back = np.asarray(four_step_ntt_inv_fused(jnp.asarray(want), params=jp, n1=16,
+                                                   p_polys=2, interpret=True))
+    back = _schedule(fwd, p, 16, inverse=True)
+    np.testing.assert_array_equal(back.numpy(), want_back.astype(np.int64))
+    assert torch.equal(back, _t(x))
+
+
 def test_wrapper_on_cpu_takes_plain_and_rejects_bad_input():
     p = RingParams.new(1024, 2, 28, 14)
     x = _t(_residues(p, 3, 3)).reshape(2, 3, 1, 1024)
@@ -147,6 +278,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         four_step.four_step_ntt_fwd(x.transpose(1, 2), p, 64)
     with pytest.raises(ValueError):
         four_step.four_step_ntt_fwd(x, p, 2)
+    # the kernel takes n2 = 128 only: n1 = 128 at n = 8192 would give n2 = 64
+    with pytest.raises(ValueError, match="n2"):
+        four_step.four_step_ntt_inv(x, p, 128)
+    small = RingParams.new(1024, 2, 28, 14)
+    with pytest.raises(ValueError, match="bounds"):
+        four_step.four_step_ntt_fwd(_t(_residues(small, 2, 2)).to(cuda_device), small, 8)
 
 
 @pytest.mark.cuda

@@ -67,11 +67,11 @@ def _is_transition(path) -> bool:
 @pytest.mark.parametrize("d", [1, 2])
 def test_trapdoor_compact_bytes(d):
     p, jp = _params()
-    td, _ = TrapdoorSampler(p, SIGMA, seed=3).trapdoor(p, d)
+    td, _ = TrapdoorSampler(p, SIGMA, seed=3, device="cpu").trapdoor(p, d)
     jtd, _ = JaxTrapdoorSampler(jp, SIGMA, seed=3).trapdoor(jp, d)
     raw = td.to_compact_bytes()
     assert raw == jtd.to_compact_bytes()
-    back = Trapdoor.from_compact_bytes(p, jtd.to_compact_bytes())
+    back = Trapdoor.from_compact_bytes(p, jtd.to_compact_bytes(), device="cpu")
     _eq(back.r, jtd.r)
     _eq(back.e, jtd.e)
     assert JaxTrapdoor.from_compact_bytes(jp, raw).to_compact_bytes() == raw
@@ -80,14 +80,14 @@ def test_trapdoor_compact_bytes(d):
 @pytest.mark.parametrize("size,index", [(1, 0), (2, 1), (3, 0), (3, 2)])
 def test_unit_column_vectors(size, index):
     p, jp = _params()
-    _eq(PolyMatrix.unit_column_vector(p, size, index),
+    _eq(PolyMatrix.unit_column_vector(p, size, index, device="cpu"),
         JaxPolyMatrix.unit_column_vector(jp, size, index))
-    scalar = UniformSampler(seed=size).sample_poly(p, FinRingDist())
+    scalar = UniformSampler(seed=size, device="cpu").sample_poly(p, FinRingDist())
     jscalar = JaxUniformSampler(seed=size).sample_poly(jp, JaxFinRingDist())
     _eq(PolyMatrix.scaled_unit_column_vector(p, size, index, scalar),
         JaxPolyMatrix.scaled_unit_column_vector(jp, size, index, jscalar))
     with pytest.raises(ValueError):
-        PolyMatrix.unit_column_vector(p, size, size)
+        PolyMatrix.unit_column_vector(p, size, size, device="cpu")
 
 
 # ---------------------------------------------------------- artifacts, online
@@ -107,7 +107,7 @@ def jax_run(tmp_path_factory):
 def test_injector_artifacts_bit_equal(jax_run, tmp_path):
     jdir, _, _ = jax_run
     p, _ = _params()
-    DiamondInjector(p, *SHAPE, SIGMA, 4.0, seed=31).preprocess(tmp_path, Poly.const(p, 5))
+    DiamondInjector(p, *SHAPE, SIGMA, 4.0, seed=31, device="cpu").preprocess(tmp_path, Poly.const(p, 5, device="cpu"))
     mine = {f.name: f for f in tmp_path.iterdir()}
     theirs = {f.name: f for f in jdir.iterdir()}
     assert sorted(mine) == sorted(theirs)
@@ -139,8 +139,8 @@ def _transition_target(inj, d, level, digit, state_idx):
 @pytest.mark.parametrize("args,shape", [(ARGS, SHAPE), ((4, 2, 17, 1), (2, 4, 2))])
 def test_injector_transitions_exact(args, shape, tmp_path):
     p, _ = _params(args)
-    inj = DiamondInjector(p, *shape, SIGMA, 0.0, seed=41)
-    inj.preprocess(tmp_path, Poly.const(p, 2))
+    inj = DiamondInjector(p, *shape, SIGMA, 0.0, seed=41, device="cpu")
+    inj.preprocess(tmp_path, Poly.const(p, 2, device="cpu"))
     checked = 0
     for level in range(1, inj.input_count + 1):
         for digit in range(inj.base):
@@ -160,8 +160,8 @@ def test_injector_exact_relations(tmp_path):
     """tests/test_input_injector.py's relation test on the port."""
     params = RingParams.default()
     input_count, base, batch_bits = 3, 4, 2
-    injector = DiamondInjector(params, input_count, base, batch_bits, SIGMA, 0.0, seed=71)
-    k = Poly.const(params, 3)
+    injector = DiamondInjector(params, input_count, base, batch_bits, SIGMA, 0.0, seed=71, device="cpu")
+    k = Poly.const(params, 3, device="cpu")
     out = injector.preprocess(tmp_path, k)
     digits = [1, 3, 2]
     states = injector.online_eval(tmp_path, out, digits)
@@ -177,7 +177,7 @@ def test_injector_exact_relations(tmp_path):
         for bit_idx in range(batch_bits):
             sidx = injector.bit_state_idx(input_idx, bit_idx)
             bit = injector.digit_bit_value(digits[input_idx], bit_idx)
-            row = PolyMatrix.from_poly_row(params, [sigma_full, sigma_full * Poly.const(params, bit)])
+            row = PolyMatrix.from_poly_row(params, [sigma_full, sigma_full * Poly.const(params, bit, device="cpu")])
             assert states[sidx] == row @ out.final_pub_matrices[sidx], (input_idx, bit_idx)
 
 
@@ -185,11 +185,11 @@ def test_injector_resume(tmp_path):
     """tests/test_input_injector.py's resume test on the port: a second
     preprocess (another seed) finds every checkpoint and samples nothing."""
     params = RingParams.default()
-    injector = DiamondInjector(params, 1, 2, 1, SIGMA, 0.0, seed=72)
-    k = Poly.const(params, 5)
+    injector = DiamondInjector(params, 1, 2, 1, SIGMA, 0.0, seed=72, device="cpu")
+    k = Poly.const(params, 5, device="cpu")
     out1 = injector.preprocess(tmp_path, k)
     files = {f.name: f.read_bytes() for f in tmp_path.iterdir()}
-    out2 = DiamondInjector(params, 1, 2, 1, SIGMA, 0.0, seed=99).preprocess(tmp_path, k)
+    out2 = DiamondInjector(params, 1, 2, 1, SIGMA, 0.0, seed=99, device="cpu").preprocess(tmp_path, k)
     assert {f.name: f.read_bytes() for f in tmp_path.iterdir()} == files
     assert out1.final_pub_matrices[0] == out2.final_pub_matrices[0]
     assert out1.final_trapdoors[0].to_compact_bytes() == out2.final_trapdoors[0].to_compact_bytes()
@@ -203,11 +203,11 @@ def test_online_eval_reads_jax_artifacts(jax_run):
     out = convert.preprocess_out_from_numpy(
         p,
         [(np.asarray(t.r.data), np.asarray(t.e.data), t.r.fmt) for t in jout.final_trapdoors],
-        [(np.asarray(b.data), b.fmt) for b in jout.final_pub_matrices],
+        [(np.asarray(b.data), b.fmt) for b in jout.final_pub_matrices], device="cpu",
     )
     for t, jt in zip(out.final_trapdoors, jout.final_trapdoors):
         assert t.to_compact_bytes() == jt.to_compact_bytes()
-    inj = DiamondInjector(p, *SHAPE, SIGMA, 4.0, seed=0)  # reads only: any seed
+    inj = DiamondInjector(p, *SHAPE, SIGMA, 4.0, seed=0, device="cpu")  # reads only: any seed
     states = inj.online_eval(jdir, out, DIGITS)
     assert len(states) == len(jstates) == 3
     for mine, theirs in zip(states, jstates):
@@ -216,8 +216,8 @@ def test_online_eval_reads_jax_artifacts(jax_run):
 
 def test_jax_online_eval_reads_port_artifacts(tmp_path):
     p, jp = _params()
-    inj = DiamondInjector(p, *SHAPE, SIGMA, 4.0, seed=33)
-    out = inj.preprocess(tmp_path, Poly.const(p, 9))
+    inj = DiamondInjector(p, *SHAPE, SIGMA, 4.0, seed=33, device="cpu")
+    out = inj.preprocess(tmp_path, Poly.const(p, 9, device="cpu"))
     states = inj.online_eval(tmp_path, out, [0, 1])
     jinj = JaxDiamondInjector(jp, *SHAPE, SIGMA, 4.0, seed=0)
     jstates = jinj.online_eval(tmp_path, None, [0, 1])
@@ -232,7 +232,7 @@ def test_jax_online_eval_reads_port_artifacts(tmp_path):
 ])
 def test_simulation_equal(args, shape, error_sigma):
     p, jp = _params(args)
-    sim = simulate_output_error_bounds(DiamondInjector(p, *shape, SIGMA, error_sigma))
+    sim = simulate_output_error_bounds(DiamondInjector(p, *shape, SIGMA, error_sigma, device="cpu"))
     jsim = jax_simulate_output_error_bounds(JaxDiamondInjector(jp, *shape, SIGMA, error_sigma))
 
     def flat(m):

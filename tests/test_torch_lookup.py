@@ -104,19 +104,19 @@ def jax_matrix(jx, jp, m):
 def test_a_lt_and_k_low_equal_jax(jx):
     p, jp = RingParams.new(*ARGS), jx.RingParams.new(*ARGS)
     for ctx, slot in [("", None), ("round1/branch0", 2)]:
-        mine = lwe.derive_a_lt_matrix(p, 1, KEY, 5, slot, ctx)
+        mine = lwe.derive_a_lt_matrix(p, 1, KEY, 5, slot, ctx, device="cpu")
         theirs = jx.lwe.derive_a_lt_matrix(jp, 1, KEY, 5, slot, ctx)
         assert mine.fmt == theirs.fmt
         np.testing.assert_array_equal(convert.to_numpy(mine), np.asarray(theirs.data))
         gates = [3, 5, 9]
-        batch = lwe.derive_a_lt_matrices_batch(p, 1, KEY, gates, slot, ctx)
+        batch = lwe.derive_a_lt_matrices_batch(p, 1, KEY, gates, slot, ctx, device="cpu")
         jbatch = jx.lwe.derive_a_lt_matrices_batch(jp, 1, KEY, gates, slot, ctx)
         for a, ja in zip(batch, jbatch):
             np.testing.assert_array_equal(convert.to_numpy(a), np.asarray(ja.data))
         assert batch[1] == mine  # the batch equals the single derivation
-        again = lwe.derive_a_lt_matrices_batch(p, 1, KEY, gates, slot, ctx)
+        again = lwe.derive_a_lt_matrices_batch(p, 1, KEY, gates, slot, ctx, device="cpu")
         assert all(x is y for x, y in zip(again, batch))  # cache hit
-        k_low = lwe.derive_k_low(p, 1, KEY, 5, 0, 11, slot, ctx)
+        k_low = lwe.derive_k_low(p, 1, KEY, 5, 0, 11, slot, ctx, device="cpu")
         jk_low = jx.lwe.derive_k_low(jp, 1, KEY, 5, 0, 11, slot, ctx)
         assert k_low.fmt == jk_low.fmt and k_low.shape == (p.modulus_digits, p.modulus_digits)
         np.testing.assert_array_equal(convert.to_numpy(k_low), np.asarray(jk_low.data))
@@ -129,7 +129,7 @@ def test_plaintext_oracle_equals_jax(jx, abc):
     p, jp = RingParams.new(*ARGS), jx.RingParams.new(*ARGS)
     mine = chain_circuit(PolyCircuit(), mod_p_lut(PublicLut, p))
     theirs = chain_circuit(jx.PolyCircuit(), mod_p_lut(jx.PublicLut, jp))
-    out = mine.eval(p, Poly.one(p), [Poly.const(p, v) for v in abc],
+    out = mine.eval(p, Poly.one(p, device="cpu"), [Poly.const(p, v, device="cpu") for v in abc],
                     plt_evaluator=PolyPltEvaluator())[0]
     jout = theirs.eval(jp, jx.Poly.one(jp), [jx.Poly.const(jp, v) for v in abc],
                        plt_evaluator=jx.PolyPltEvaluator())[0]
@@ -164,9 +164,9 @@ def test_offline_targets_and_batch_files_equal_jax(jx, tmp_path, monkeypatch):
     monkeypatch.setenv("LUT_BYTES_LIMIT", str(20_000))
     circuit = chain_circuit(PolyCircuit(), mod_p_lut(PublicLut, p))
     jcircuit = chain_circuit(jx.PolyCircuit(), mod_p_lut(jx.PublicLut, jp))
-    pks = BGGPublicKeySampler(KEY, 1).sample(p, b"bgg_pubkey", [True] * 3)
+    pks = BGGPublicKeySampler(KEY, 1, device="cpu").sample(p, b"bgg_pubkey", [True] * 3)
     jpks = jx.BGGPublicKeySampler(KEY, 1).sample(jp, b"bgg_pubkey", [True] * 3)
-    _, b0 = TrapdoorSampler(p, TRAPDOOR_SIGMA, seed=79).trapdoor(p, 1)
+    _, b0 = TrapdoorSampler(p, TRAPDOOR_SIGMA, seed=79, device="cpu").trapdoor(p, 1)
 
     buffers = {"port": [], "jax": []}
     for name, mod in [("port", lwe), ("jax", jx.lwe)]:
@@ -295,7 +295,7 @@ def test_port_chain_decodes(port_chain):
     assert err < q_over_p // 2, f"error too large: {err} vs {q_over_p // 2}"
     assert mask_ok
     assert check_stored_rows(run) == 2 * P_MOD * P_MOD
-    x = run.circuit.eval(p, Poly.one(p), [Poly.const(p, v) for v in run.abc],
+    x = run.circuit.eval(p, Poly.one(p, device="cpu"), [Poly.const(p, v, device="cpu") for v in run.abc],
                          plt_evaluator=PolyPltEvaluator())[0]
     assert run.out_enc.plaintext == x
 
@@ -370,9 +370,9 @@ def test_port_chain_on_card(cuda_device, tmp_path, monkeypatch):
 
 def _trapdoor_and_targets(count, width, seed=5):
     p = RingParams.new(*ARGS)
-    ts = TrapdoorSampler(p, TRAPDOOR_SIGMA, seed=seed)
+    ts = TrapdoorSampler(p, TRAPDOOR_SIGMA, seed=seed, device="cpu")
     td, b = ts.trapdoor(p, 1)
-    us = UniformSampler(seed=seed + 1)
+    us = UniformSampler(seed=seed + 1, device="cpu")
     return p, ts, td, b, [us.sample_uniform(p, 1, width, FinRingDist()) for _ in range(count)]
 
 
@@ -412,7 +412,7 @@ def test_preimage_batched_sharded_is_one_call_and_rejects_a_mesh():
 
 def test_preimage_extend_exact():
     p, ts, td, b, (target,) = _trapdoor_and_targets(1, 4, seed=11)
-    ext = UniformSampler(seed=12).sample_uniform(p, 1, 5, FinRingDist())
+    ext = UniformSampler(seed=12, device="cpu").sample_uniform(p, 1, 5, FinRingDist())
     x = ts.preimage_extend(p, td, b, ext, target)
     assert x.shape == (b.ncol + ext.ncol, 4)
     assert b.concat_columns([ext]) @ x == target
@@ -443,10 +443,10 @@ def test_debug_evaluators_equal_jax(jx):
     circuit = debug_circuit(PolyCircuit(), mod_p_lut(PublicLut, p))
     jcircuit = debug_circuit(jx.PolyCircuit(), mod_p_lut(jx.PublicLut, jp))
     vals = [int(v) for v in np.random.default_rng(3).integers(0, P_MOD, size=N_LUT + 1)]
-    plain = [Poly.const(p, v) for v in vals]
-    pks = BGGPublicKeySampler(KEY, 1).sample(p, b"debug_lut", [True] * len(vals))
+    plain = [Poly.const(p, v, device="cpu") for v in vals]
+    pks = BGGPublicKeySampler(KEY, 1, device="cpu").sample(p, b"debug_lut", [True] * len(vals))
     jpks = jx.BGGPublicKeySampler(KEY, 1).sample(jp, b"debug_lut", [True] * len(vals))
-    secret = UniformSampler(seed=21).sample_poly(p, TernaryDist())
+    secret = UniformSampler(seed=21, device="cpu").sample_poly(p, TernaryDist())
     es = BGGEncodingSampler(p, [secret])  # zero error: the relation is exact
     encs = es.sample(p, pks, plain)
     s_vec = es.secret_vec
@@ -456,8 +456,8 @@ def test_debug_evaluators_equal_jax(jx):
     enc_seq = circuit.eval(p, encs[0], encs[1:], plt_evaluator=RelationCheckingPltEvaluator(
         DebugBGGEncodingPltEvaluator(KEY, s_vec), s_vec))
     enc_bat = eval_batched(circuit, p, encs[0], encs[1:], DebugBGGEncodingPltEvaluator(KEY, s_vec))
-    x_out = circuit.eval(p, Poly.one(p), plain, plt_evaluator=PolyPltEvaluator())
-    s_g = s_vec @ PolyMatrix.gadget_matrix(p, 1)
+    x_out = circuit.eval(p, Poly.one(p, device="cpu"), plain, plt_evaluator=PolyPltEvaluator())
+    s_g = s_vec @ PolyMatrix.gadget_matrix(p, 1, device="cpu")
     for s, b, es_, eb, x in zip(pk_seq, pk_bat, enc_seq, enc_bat, x_out):
         assert s == b and es_ == eb and eb.pubkey == b
         assert eb.vector == s_vec @ eb.pubkey.matrix - s_g.mul_poly_scalar(x)
@@ -493,11 +493,11 @@ def test_debug_evaluators_equal_jax(jx):
 def test_relation_checking_evaluator_rejects_a_wrong_output():
     p = RingParams.new(*ARGS)
     circuit = debug_circuit(PolyCircuit(), mod_p_lut(PublicLut, p))
-    plain = [Poly.const(p, v) for v in range(1, N_LUT + 2)]
-    pks = BGGPublicKeySampler(KEY, 1).sample(p, b"debug_lut", [True] * len(plain))
-    es = BGGEncodingSampler(p, [UniformSampler(seed=22).sample_poly(p, TernaryDist())])
+    plain = [Poly.const(p, v, device="cpu") for v in range(1, N_LUT + 2)]
+    pks = BGGPublicKeySampler(KEY, 1, device="cpu").sample(p, b"debug_lut", [True] * len(plain))
+    es = BGGEncodingSampler(p, [UniformSampler(seed=22, device="cpu").sample_poly(p, TernaryDist())])
     encs = es.sample(p, pks, plain)
-    wrong = PolyMatrix.from_poly_row(p, [Poly.const(p, 1)])  # not the encodings' secret
+    wrong = PolyMatrix.from_poly_row(p, [Poly.const(p, 1, device="cpu")])  # not the encodings' secret
     checking = RelationCheckingPltEvaluator(DebugBGGEncodingPltEvaluator(KEY, wrong),
                                             es.secret_vec)
     with pytest.raises(AssertionError, match="relation violated"):

@@ -37,7 +37,7 @@ def _both(args, lead, seed, fmt):
     """The same random matrix in both packages."""
     p, jp = RingParams.new(*args), JaxRingParams.new(*args)
     arr = _residues(p, lead, seed)
-    return convert.poly_matrix_from_numpy(p, arr, fmt), JaxPolyMatrix(jnp.asarray(arr), fmt, jp)
+    return convert.poly_matrix_from_numpy(p, arr, fmt, device="cpu"), JaxPolyMatrix(jnp.asarray(arr), fmt, jp)
 
 
 def _same(mine: PolyMatrix, theirs: JaxPolyMatrix):
@@ -74,9 +74,9 @@ def test_digit_decompose_equal(args, small):
 @pytest.mark.parametrize("args", ARGS)
 def test_gadget_identity_zero_equal(args):
     p, jp = RingParams.new(*args), JaxRingParams.new(*args)
-    _same(PolyMatrix.gadget_matrix(p, 2), JaxPolyMatrix.gadget_matrix(jp, 2))
-    _same(PolyMatrix.identity(p, 3), JaxPolyMatrix.identity(jp, 3))
-    _same(PolyMatrix.zero(p, 2, 3, COEFF), JaxPolyMatrix.zero(jp, 2, 3, COEFF))
+    _same(PolyMatrix.gadget_matrix(p, 2, device="cpu"), JaxPolyMatrix.gadget_matrix(jp, 2))
+    _same(PolyMatrix.identity(p, 3, device="cpu"), JaxPolyMatrix.identity(jp, 3))
+    _same(PolyMatrix.zero(p, 2, 3, COEFF, device="cpu"), JaxPolyMatrix.zero(jp, 2, 3, COEFF))
 
 
 @pytest.mark.parametrize("args", ARGS)
@@ -101,7 +101,7 @@ def test_poly_matrix_algebra_equal(args):
     assert a.to_eval() == a and not (a == c)
     # G @ G^{-1}(x) == x
     p = a.params
-    assert PolyMatrix.gadget_matrix(p, 2) @ a.decompose() == a
+    assert PolyMatrix.gadget_matrix(p, 2, device="cpu") @ a.decompose() == a
 
 
 def test_poly_equal():
@@ -114,8 +114,8 @@ def test_poly_equal():
     jb = JaxPoly(jnp.asarray(arr[:, 1]), EVAL, jp)
     for mine, theirs in [(a * b, ja * jb), (a + b, ja + jb), (a - b, ja - jb), (-a, -ja),
                          (a.to_eval(), ja.to_eval()), (b.to_coeff(), jb.to_coeff()),
-                         (Poly.const(p, -3), JaxPoly.const(jp, -3)),
-                         (Poly.one(p), JaxPoly.one(jp)), (Poly.zero(p), JaxPoly.zero(jp))]:
+                         (Poly.const(p, -3, device="cpu"), JaxPoly.const(jp, -3)),
+                         (Poly.one(p, device="cpu"), JaxPoly.one(jp)), (Poly.zero(p, device="cpu"), JaxPoly.zero(jp))]:
         assert mine.fmt == theirs.fmt
         np.testing.assert_array_equal(mine.data.numpy(), np.asarray(theirs.data).astype(np.int64))
-    assert a * Poly.one(p) == a
+    assert a * Poly.one(p, device="cpu") == a

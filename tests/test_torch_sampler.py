@@ -27,7 +27,7 @@ SEEDS = [0, 7, 12345]
 def _keys(seed):
     """The same fresh key in both packages."""
     jk = jax_core.fresh_key(seed)
-    k = core.fresh_key(seed)
+    k = core.fresh_key(seed, device="cpu")
     np.testing.assert_array_equal(k.numpy(), np.asarray(jk).astype(np.int64))
     return k, jk
 
@@ -40,7 +40,7 @@ def _eq(mine: torch.Tensor, theirs, as_u64=False):
 
 
 def test_chacha_rfc8439_vector():
-    assert chacha.self_test_vector()
+    assert chacha.self_test_vector(device="cpu")
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -54,9 +54,9 @@ def test_fold_in_split_equal(seed):
     ja, jb = jax_chacha.split2(jk)
     _eq(a, ja)
     _eq(b, jb)
-    _eq(core.derive_key(bytes(range(32)), "tag", b"dom"),
+    _eq(core.derive_key(bytes(range(32)), "tag", b"dom", device="cpu"),
         jax_core.derive_key(bytes(range(32)), "tag", b"dom"))
-    _eq(convert.key_from_numpy(np.asarray(jk)), jk)
+    _eq(convert.key_from_numpy(np.asarray(jk), device="cpu"), jk)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -95,7 +95,7 @@ def test_gauss_table_holds_top_threshold():
 def test_uniform_sampler_equal(seed):
     args = (16, 2, 20, 5)
     p, jp = RingParams.new(*args), JaxRingParams.new(*args)
-    s, js = UniformSampler(seed), JaxUniformSampler(seed)
+    s, js = UniformSampler(seed, device="cpu"), JaxUniformSampler(seed)
     for dist, jdist in [(FinRingDist(), jax_dist.FinRingDist()),
                         (GaussDist(4.578), jax_dist.GaussDist(4.578)),
                         (BitDist(), jax_dist.BitDist()), (TernaryDist(), jax_dist.TernaryDist()),

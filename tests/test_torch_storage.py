@@ -49,7 +49,7 @@ def jx():
 
 
 def _matrices(p, count, seed, shape=(1, 16)):
-    us = UniformSampler(seed=seed)
+    us = UniformSampler(seed=seed, device="cpu")
     return [us.sample_uniform(p, *shape, FinRingDist()).to_eval() for _ in range(count)]
 
 
@@ -157,7 +157,7 @@ def test_read_rejects_bad_and_truncated_files(tmp_path):
 def test_offload_roundtrip_streamed_matmul_and_jax_memmaps(jx, tmp_path):
     _, _, jparams, joffload = jx
     p, jp = RingParams.new(16, 2, 20, 5), jparams.RingParams.new(16, 2, 20, 5)
-    us = UniformSampler(seed=41)
+    us = UniformSampler(seed=41, device="cpu")
     a = us.sample_uniform(p, 2, 7, FinRingDist())
     b = us.sample_uniform(p, 7, 13, FinRingDist())
     want = a @ b

@@ -74,7 +74,7 @@ def normals_into_jax(monkeypatch):
 @pytest.mark.parametrize("d", [1, 2])
 def test_trapdoor_equal(d):
     p, jp = RingParams.new(*ARGS), JaxRingParams.new(*ARGS)
-    td, a = TrapdoorSampler(p, SIGMA, seed=3).trapdoor(p, d)
+    td, a = TrapdoorSampler(p, SIGMA, seed=3, device="cpu").trapdoor(p, d)
     jtd, ja = JaxTrapdoorSampler(jp, SIGMA, seed=3).trapdoor(jp, d)
     _same(td.r, jtd.r)
     _same(td.e, jtd.e)
@@ -84,10 +84,10 @@ def test_trapdoor_equal(d):
 @pytest.mark.parametrize("d", [1, 2])
 def test_preimage_on_own_trapdoor(d):
     p = RingParams.new(*ARGS)
-    ts = TrapdoorSampler(p, SIGMA, seed=3)
+    ts = TrapdoorSampler(p, SIGMA, seed=3, device="cpu")
     td, a = ts.trapdoor(p, d)
     k = p.modulus_digits
-    target = UniformSampler(seed=5).sample_uniform(p, d, 3, FinRingDist())
+    target = UniformSampler(seed=5, device="cpu").sample_uniform(p, d, 3, FinRingDist())
     x = ts.preimage(p, td, a, target)
     assert x.shape == (d * (k + 2), 3) and x.fmt == EVAL
     assert (a @ x) == target
@@ -105,10 +105,10 @@ def test_preimage_on_jax_trapdoor(d):
     p, jp = RingParams.new(*ARGS), JaxRingParams.new(*ARGS)
     jtd, ja = JaxTrapdoorSampler(jp, SIGMA, seed=11).trapdoor(jp, d)
     jtarget = JaxUniformSampler(seed=12).sample_uniform(jp, d, 4, JaxFinRingDist())
-    td = convert.trapdoor_from_numpy(p, np.asarray(jtd.r.data), np.asarray(jtd.e.data), jtd.r.fmt)
-    a = convert.poly_matrix_from_numpy(p, np.asarray(ja.data), ja.fmt)
-    target = convert.poly_matrix_from_numpy(p, np.asarray(jtarget.data), jtarget.fmt)
-    x = TrapdoorSampler(p, SIGMA, seed=13).preimage(p, td, a, target)
+    td = convert.trapdoor_from_numpy(p, np.asarray(jtd.r.data), np.asarray(jtd.e.data), jtd.r.fmt, device="cpu")
+    a = convert.poly_matrix_from_numpy(p, np.asarray(ja.data), ja.fmt, device="cpu")
+    target = convert.poly_matrix_from_numpy(p, np.asarray(jtarget.data), jtarget.fmt, device="cpu")
+    x = TrapdoorSampler(p, SIGMA, seed=13, device="cpu").preimage(p, td, a, target)
     assert (a @ x) == target
     # and the JAX package agrees that it is a preimage
     jx = JaxPolyMatrix(jnp.asarray(convert.to_numpy(x)), x.fmt, jp)
@@ -156,7 +156,7 @@ def test_gauss_samp_gq_equal_given_normals(args, normals_into_jax):
 
 def test_sample_p1_ints_equal_given_normals(normals_into_jax):
     p = RingParams.new(*ARGS)
-    ts = TrapdoorSampler(p, SIGMA, seed=31)
+    ts = TrapdoorSampler(p, SIGMA, seed=31, device="cpu")
     td, a = ts.trapdoor(p, 1)
     k = p.modulus_digits
     s = trapdoor.preimage_smoothing_parameter(ts.base, SIGMA, 1, p.n, k)

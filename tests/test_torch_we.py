@@ -49,7 +49,7 @@ def _or_circuit(cls):
 @pytest.mark.parametrize("seed", [5, 200])
 def test_we_public_keys_and_r_equal(seed, tmp_path):
     p, jp = RingParams.new(*ARGS), JaxRingParams.new(*ARGS)
-    we = DiamondWE(DiamondInjector(p, *SHAPE, SIGMA, 0.0, seed=seed), 2, tmp_path, TAG, seed)
+    we = DiamondWE(DiamondInjector(p, *SHAPE, SIGMA, 0.0, seed=seed, device="cpu"), 2, tmp_path, TAG, seed)
     jwe = JaxDiamondWE(JaxDiamondInjector(jp, *SHAPE, SIGMA, 0.0, seed=seed), 2, tmp_path, TAG,
                        seed)
     hash_key = bytes([seed % 256] * 32)  # what enc derives from a seed
@@ -69,7 +69,7 @@ def test_we_public_keys_and_r_equal(seed, tmp_path):
 ])
 def test_we_roundtrip(args, shape, error_sigma, msg, tmp_path):
     p = RingParams.new(*args)
-    injector = DiamondInjector(p, *shape, SIGMA, error_sigma, seed=90 + msg)
+    injector = DiamondInjector(p, *shape, SIGMA, error_sigma, seed=90 + msg, device="cpu")
     we = DiamondWE(injector, 2, tmp_path, TAG, seed=91 + msg)
     ct = we.enc(msg, _or_circuit(PolyCircuit), [False])
     assert ct.preprocess_out.final_state_count == 1 + shape[0] * shape[2]
@@ -88,11 +88,11 @@ def test_jax_ciphertext_decrypts_on_port(tmp_path):
     ct = convert.diamond_we_ciphertext_from_numpy(
         p, _or_circuit(PolyCircuit), jct.instance, jct.hash_key,
         [(np.asarray(t.r.data), np.asarray(t.e.data), t.r.fmt) for t in pre.final_trapdoors],
-        [(np.asarray(b.data), b.fmt) for b in pre.final_pub_matrices],
+        [(np.asarray(b.data), b.fmt) for b in pre.final_pub_matrices], device="cpu",
     )
     assert ct.hash_key == jct.hash_key and ct.instance == [False]
     for mine, theirs in zip(ct.preprocess_out.final_pub_matrices, pre.final_pub_matrices):
         _eq(mine, theirs)
     # the port reads the JAX package's artifact directory as it is
-    we = DiamondWE(DiamondInjector(p, *SHAPE, SIGMA, 4.0, seed=0), 2, tmp_path, TAG, seed=0)
+    we = DiamondWE(DiamondInjector(p, *SHAPE, SIGMA, 4.0, seed=0, device="cpu"), 2, tmp_path, TAG, seed=0)
     assert we.dec(ct, [False, True]) is True
