@@ -59,13 +59,38 @@ no package beside it, a kernel that does not build, launch or agree):
    dec of four messages with f = 0 and f = 1; checked: each decode equals
    f(x), B K_f == A_f G^{-1}((q/2) e_last) exactly; K1 and K2 launched in
    each of phases 8 and 9 (counters reset before, read after);
-10. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+10. one nested-RNS modular multiplication over BGG+ wires at the same ring
+   (`RingGswContext(..., 8, 2, p_basis="wide")`, k = 11 wide p-moduli): the
+   circuit a.mul(b).full_reduce() and its reconstruct(); the 176 residues of
+   two seeded values mod Q lifted from the one wire by
+   `lift_constants_batched`, onto public keys and onto encodings (error
+   sigma 4.0); both passes through `eval_batched` with the debug LUT
+   evaluators; checked: lifts == per-call `large_scalar_mul` on a sample,
+   outputs decode to x y mod Q and equal the plaintext oracle, encoding
+   public keys == pubkey pass, every output c = s A - pt (s G) exactly;
+   gates/s, constants/s, the phase's peak device memory, and a profiled
+   pubkey pass, its device time split by stage;
+11. the trapdoor-backed noise refresh (trapdoor sigma 4.578, a size-2
+   trapdoor, state0 = [sigma, 1] B0): (i) `DiamondNoiseRefresher` with
+   v_bits 8, base_bits 4: a dirtied encoding of a Delta-aligned x comes out
+   with refreshed.vector == sigma A' - x G exactly, and the dirty one did
+   not satisfy it; (ii) the CRT-level-split `NoiseRefresherNaiveVec`
+   (v_bits 6, base_bits 4) over all 8 levels, 520 preimage target columns:
+   the recomposed wire exact for x_hat, |x_hat - x| within the rounding
+   bound; B0 P == target for every preimage;
+12. the masked high-bit decoder with `DirectoryDecoderArtifacts` in a
+   temporary directory (deleted after): `preprocess_public_key_matrix` for 4
+   hash-derived public keys, `online_decode` of encodings of
+   (q/2) bit + a centered mask below q/4: the four bits come back and
+   B0 preimage == target for each stored artifact; K1 and K2 launched in
+   each of phases 10-12 (counters reset before, read after);
+13. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, each kernel against its plain version at the largest transform of
    the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
    profiled batched encoding pass, its device time split by stage;
-11. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+14. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
    path's count beside it in `launches_by_path`; each kernel's least time
    `bound_ms`, the larger of its device-memory time and its integer floor,
    and its share `pct_of_bound`; `library_ms` null, since no PyTorch call
@@ -322,6 +347,9 @@ STAGE_FILES = [
     ("mxx_tpu_torch/ops/elementwise.py", "elementwise"),
     ("mxx_tpu_torch/sampler/chacha.py", "chacha20"),
     ("mxx_tpu_torch/sampler/", "samplers (other)"),
+    ("mxx_tpu_torch/lookup/", "lookup (other)"),
+    ("mxx_tpu_torch/bgg/", "bgg wires (other)"),
+    ("mxx_tpu_torch/circuit/batched_eval.py", "batched_eval stacking"),
 ]
 NTT_KERNELS = ("four_step_kernel", "radix_ntt_fwd_kernel")
 
@@ -897,6 +925,371 @@ def drive_aky24_fe(p, dev, timing) -> dict:
     return counts
 
 
+def timed(fn):
+    """(fn(), milliseconds), the card synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def require_launches(phase: str, counts: dict) -> None:
+    if counts["fwd"] == 0 or counts["inv"] == 0:
+        raise SystemExit(f"chip_smoke: the {phase} phase did not go through both four-step "
+                         "kernels")
+
+
+def drive_nested_rns_mul(p, dev, timing) -> dict:
+    """One nested-RNS modular multiplication (the unit every RingGSW external
+    product is made of) over BGG+ public keys and encodings whose inputs are
+    lifted from the one wire. Returns the K1/K2 launch counts of the phase."""
+    import random
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BGGEncodingSampler, BGGPublicKeySampler
+    from mxx_tpu_torch.bgg.lift import lift_chunk_size, lift_constants_batched
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.circuit.batched_eval import eval_batched
+    from mxx_tpu_torch.gadgets.arith.nested_rns import (
+        NestedRnsPoly,
+        decode_nested_rns_outputs,
+        encode_nested_rns_value,
+    )
+    from mxx_tpu_torch.gadgets.fhe import RingGswContext
+    from mxx_tpu_torch.lookup import (
+        DebugBGGEncodingPltEvaluator,
+        DebugBGGPubKeyPltEvaluator,
+        PolyPltEvaluator,
+    )
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.sampler import TernaryDist, UniformSampler
+
+    circuit = PolyCircuit()
+    ctx = RingGswContext(circuit, p, 8, 2, p_basis="wide").nested
+    a = NestedRnsPoly.input(ctx, circuit)
+    b = NestedRnsPoly.input(ctx, circuit)
+    prod = a.mul(b, circuit).full_reduce(circuit)
+    circuit.output(prod.flatten() + [prod.reconstruct(circuit)])
+    counts_by_kind = circuit.gate_counts()
+    n_gates = sum(v for g, v in counts_by_kind.items() if g != "Input")
+    n_lut = counts_by_kind.get("PubLut", 0)
+
+    rng = random.Random(61)
+    q_big = p.modulus
+    x, y = rng.randrange(q_big), rng.randrange(q_big)
+    values = [r for v in (x, y) for row in encode_nested_rns_value(ctx, v) for r in row]
+    secret = UniformSampler(seed=62, device=dev).sample_poly(p, TernaryDist())
+    one_pk = BGGPublicKeySampler(BGG_KEY, 1, device=dev).sample(p, b"nested_rns", [])
+    es = BGGEncodingSampler(p, [secret], gauss_sigma=4.0, seed=63)
+    one_enc = es.sample(p, one_pk, [])[0]
+    s = es.secret_vec
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    four_step.launches.update(fwd=0, inv=0)
+    pk_in, ms_lift_pk = timed(lambda: lift_constants_batched(p, one_pk[0], values))
+    enc_in, ms_lift_enc = timed(lambda: lift_constants_batched(p, one_enc, values))
+    sample = [0, len(values) // 2 - 1, len(values) - 1]
+    ok_lift = all(pk_in[i] == one_pk[0].large_scalar_mul(p, [values[i]])
+                  and enc_in[i] == one_enc.large_scalar_mul(p, [values[i]]) for i in sample)
+    ok_lift_card = all(w.vector.data.is_cuda and w.pubkey.matrix.data.is_cuda for w in enc_in)
+    stores: list = []
+    pk_out, ms_pk = timed(lambda: eval_batched(
+        circuit, p, one_pk[0], pk_in, DebugBGGPubKeyPltEvaluator(BGG_KEY), wire_store_out=stores))
+    enc_out, ms_enc = timed(lambda: eval_batched(
+        circuit, p, one_enc, enc_in, DebugBGGEncodingPltEvaluator(BGG_KEY, s),
+        wire_store_out=stores))
+    counts = dict(four_step.launches)
+    peak = torch.cuda.max_memory_allocated()
+    del enc_in
+
+    oracle, ms_oracle = timed(lambda: circuit.eval(
+        p, Poly.one(p, dev), [Poly.const(p, v, dev) for v in values],
+        plt_evaluator=PolyPltEvaluator()))
+    s_g = s @ PolyMatrix.gadget_matrix(p, 1, dev)
+    k, levels = ctx.k, prod.levels
+    raw = [e.plaintext.const_value() for e in enc_out]
+    rows = [raw[lvl * k:(lvl + 1) * k] for lvl in range(levels)]
+    want = x * y % q_big
+    ok_decode = decode_nested_rns_outputs(ctx, rows) == want and raw[-1] == want
+    ok_oracle = all(e.plaintext == o for e, o in zip(enc_out, oracle))
+    ok_keys = all(e.pubkey == k_ for e, k_ in zip(enc_out, pk_out))
+    ok_rel = all(e.vector == s @ e.pubkey.matrix - s_g.mul_poly_scalar(o)
+                 for e, o in zip(enc_out, oracle))
+    ok_shape = len(enc_out) == levels * k + 1 and all(
+        e.vector.data.shape == (p.crt_depth, 1, p.modulus_digits, p.n) for e in enc_out)
+    torch.cuda.synchronize()
+    print(f"nested rns mul n={p.n} L={p.crt_depth} d=1, wide p-basis of {k} moduli below 2^8, "
+          f"{len(values)} lifted inputs, {n_gates} gates ({n_lut} PubLut), {len(enc_out)} "
+          f"outputs: lifts == large_scalar_mul on wires {sample} {ok_lift}, lifted wires on the "
+          f"card {ok_lift_card}, outputs decode to x y mod Q {ok_decode}, plaintexts == oracle "
+          f"{ok_oracle}, encoding pubkeys == pubkey pass {ok_keys}, c == s A - pt (s G) "
+          f"{ok_rel}, shapes {ok_shape} (tolerance 0: exact); lift chunks of "
+          f"{lift_chunk_size(p, 1, False)} (pubkeys) and {lift_chunk_size(p, 1, True)} "
+          f"(encodings) constants; live wires at most "
+          f"{max(st.peak_live_bytes for st in stores) / 2**30:.2f} GiB, "
+          f"{sum(st.spill_count for st in stores)} spilled; launches in the phase: fwd "
+          f"{counts['fwd']}, inv {counts['inv']}", flush=True)
+    timing("nested rns mul: lift onto public keys", len(values) / ms_lift_pk * 1e3,
+           "constants/s", f" ({ms_lift_pk:.1f} ms for {len(values)})")
+    timing("nested rns mul: lift onto encodings", len(values) / ms_lift_enc * 1e3,
+           "constants/s", f" ({ms_lift_enc:.1f} ms for {len(values)})")
+    timing(f"nested rns mul: pubkey pass, batched, {n_gates} gates", n_gates / ms_pk * 1e3,
+           "gates/s", f" ({ms_pk:.1f} ms)")
+    timing(f"nested rns mul: encoding pass, batched, {n_gates} gates", n_gates / ms_enc * 1e3,
+           "gates/s", f" ({ms_enc:.1f} ms)")
+    timing("nested rns mul: plaintext oracle, sequential", ms_oracle, "ms")
+    timing("nested rns mul: peak device memory of lifts and passes", peak / 2**30, "GiB")
+    if not all((ok_lift, ok_lift_card, ok_decode, ok_oracle, ok_keys, ok_rel, ok_shape)):
+        raise SystemExit("chip_smoke: nested-RNS multiplication check failed")
+    require_launches("nested rns mul", counts)
+    del enc_out, pk_out, oracle
+    profiled_stages("nested rns mul: pubkey pass, batched, profiled",
+                    lambda: eval_batched(circuit, p, one_pk[0], pk_in,
+                                         DebugBGGPubKeyPltEvaluator(BGG_KEY)), timing)
+    return counts
+
+
+class CheckedPreimages:
+    """A trapdoor sampler that times each preimage call (the card
+    synchronized around it) and holds B P == target for it at once, so no
+    target or preimage is kept."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.calls: list = []  # (ms, target columns, B P == target)
+
+    def preimage(self, params, trapdoor, public_matrix, target):
+        out, ms = timed(lambda: self.inner.preimage(params, trapdoor, public_matrix, target))
+        self.calls.append((ms, target.ncol, public_matrix @ out == target))
+        return out
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return (sum(c[0] for c in calls), sum(c[1] for c in calls), len(calls),
+                all(c[2] for c in calls))
+
+
+def trapdoor_state(p, dev):
+    """(checked sampler, trapdoor, B0, sigma, state0 = [sigma, 1] B0) of the
+    refresh and decoder phases."""
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
+
+    ts = CheckedPreimages(TrapdoorSampler(p, 4.578, seed=141, device=dev))
+    td0, b0 = ts.inner.trapdoor(p, 2)
+    sigma = UniformSampler(seed=142, device=dev).sample_poly(p, TernaryDist())
+    state0 = PolyMatrix.from_poly_row(p, [sigma, Poly.const(p, 1, dev)]) @ b0
+    return ts, td0, b0, sigma, state0
+
+
+def small_error(p, ncol: int, dev, value: int, every_entry: bool):
+    """1 x ncol COEFF matrix with `value` in coefficient 0 of every entry
+    (or of the first entry only)."""
+    import torch
+
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ring.poly import COEFF
+
+    data = torch.zeros((p.crt_depth, 1, ncol, p.n), dtype=torch.int64, device=dev)
+    data[:, :, slice(None) if every_entry else 0, 0] = value
+    return PolyMatrix(data, COEFF, p)
+
+
+def drive_noise_refresh(p, dev, state, timing) -> dict:
+    """The Diamond noise refresher on one wire, then the CRT-level-split
+    refresher over every level. Returns the K1/K2 launch counts."""
+    import random
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BggEncoding, BggPublicKey
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.noise_refresh.refresh import (
+        DiamondNoiseRefresher,
+        NoiseRefresherNaiveVec,
+    )
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import Poly
+
+    ts, td0, b0, sigma, state0 = state
+    q = p.modulus
+    g = PolyMatrix.gadget_matrix(p, 1, dev)
+    torch.cuda.synchronize()
+    four_step.launches.update(fwd=0, inv=0)
+
+    # (i) one wire
+    nr = DiamondNoiseRefresher(p, ts, b0, td0, BGG_KEY, 1, 8, base_bits=4)
+    x = nr.delta * random.Random(143).randrange(1, q // nr.delta - 1)
+    a_c = nr._hash_pk("wire_a_c")
+    clean = state0 @ nr._abs_encoding_preimage(a_c, x)
+    dirty = BggEncoding(clean + small_error(p, clean.ncol, dev, 7, True),
+                        BggPublicKey(a_c, False), None)
+    ts.take()
+    material, _ = timed(lambda: nr.preprocess(b"refresh0", a_c))
+    pre_ms, pre_cols, pre_calls, ok_pre = ts.take()
+    refreshed, ms_online = timed(lambda: nr.online_eval(b"refresh0", state0, dirty, material))
+    x_g = g.mul_poly_scalar(Poly.const(p, x, dev))
+    ok_fresh = refreshed.vector == refreshed.pubkey.matrix.mul_poly_scalar(sigma) - x_g
+    ok_dirty = not (dirty.vector == a_c.mul_poly_scalar(sigma) - x_g)
+    ok_card = refreshed.vector.data.is_cuda and all(
+        m.data.is_cuda for m in (material["p_mask"], material["p_decoder"], material["a_m"]))
+    mid = dict(four_step.launches)
+    print(f"noise refresh (i) n={p.n} L={p.crt_depth}, DiamondNoiseRefresher v_bits 8, base_bits "
+          f"4, Delta 2^{nr.delta.bit_length() - 1}, {nr.num_digits} digits: {pre_calls} "
+          f"preimages of {pre_cols} target columns, B0 P == target {ok_pre}; refreshed == "
+          f"sigma A' - x G {ok_fresh}, the dirty wire did not satisfy it {ok_dirty} "
+          f"(tolerance 0: exact), on the card {ok_card}; launches so far: fwd {mid['fwd']}, "
+          f"inv {mid['inv']}", flush=True)
+    timing("noise refresh (i): preprocess", pre_cols / pre_ms * 1e3, "preimage-cols/s",
+           f" ({pre_ms / 1e3:.3f} s in {pre_calls} preimage calls, {pre_cols} columns)")
+    timing("noise refresh (i): online_eval", ms_online, "ms")
+    del material, refreshed, dirty, clean
+
+    # (ii) every CRT level
+    nv = NoiseRefresherNaiveVec(p, ts, b0, td0, BGG_KEY, 1, 6, base_bits=4)
+    rng = random.Random(153)
+    xv = rng.randrange(q)
+    ys = nv.encode_values(xv)
+    ok_twist = sum(yi * (q // q_i) for yi, q_i in zip(ys, p.moduli)) % q == xv
+    a_cs, encs = [], []
+    for i, (lvl, yi) in enumerate(zip(nv.levels, ys)):
+        a_ci = lvl._hash_pk(f"nv_wire_{i}")
+        clean = state0 @ lvl._abs_encoding_preimage(a_ci, yi)
+        a_cs.append(a_ci)
+        encs.append(BggEncoding(clean + small_error(p, clean.ncol, dev, 1, False),
+                                BggPublicKey(a_ci, False), None))
+    ts.take()
+    materials, _ = timed(lambda: nv.preprocess(b"nv", a_cs, rng))
+    pre_ms, pre_cols, pre_calls, ok_pre_v = ts.take()
+    (fresh, recomposed, x_hat), ms_online_v = timed(
+        lambda: nv.online_eval(b"nv", state0, encs, materials))
+    ok_exact = recomposed.vector == recomposed.pubkey.matrix.mul_poly_scalar(sigma) - \
+        g.mul_poly_scalar(Poly.const(p, x_hat, dev))
+    bound = sum((lvl.delta // 2 + 1) * (q // q_i) for lvl, q_i in zip(nv.levels, p.moduli))
+    diff = min((x_hat - xv) % q, (xv - x_hat) % q)
+    ok_bound = diff <= bound
+    per_level = nv.levels[0].num_digits + 2  # the mask, each digit, the decoder (one column)
+    ok_counts = (pre_calls, pre_cols, len(fresh)) == (
+        per_level * p.crt_depth, ((per_level - 1) * p.modulus_digits + 1) * p.crt_depth,
+        p.crt_depth)
+    torch.cuda.synchronize()
+    counts = dict(four_step.launches)
+    print(f"noise refresh (ii) NoiseRefresherNaiveVec v_bits 6, base_bits 4 over "
+          f"{p.crt_depth} levels: twisted residues recompose {ok_twist}, {pre_calls} preimages "
+          f"of {pre_cols} target columns {ok_counts}, B0 P == target {ok_pre_v}; recomposed == "
+          f"sigma A' - x_hat G {ok_exact} (tolerance 0: exact), |x_hat - x| = "
+          f"2^{math.log2(max(diff, 1)):.2f} <= bound 2^{math.log2(bound):.2f} {ok_bound}; "
+          f"launches in the phase: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
+    timing("noise refresh (ii): preprocess", pre_cols / pre_ms * 1e3, "preimage-cols/s",
+           f" ({pre_ms / 1e3:.3f} s in {pre_calls} preimage calls, {pre_cols} columns)")
+    timing("noise refresh (ii): online_eval", ms_online_v, "ms",
+           f" ({p.crt_depth} levels)")
+    if not all((ok_pre, ok_fresh, ok_dirty, ok_card, ok_twist, ok_pre_v, ok_exact, ok_bound,
+                ok_counts)):
+        raise SystemExit("chip_smoke: noise refresh check failed")
+    require_launches("noise refresh", counts)
+    return counts
+
+
+def drive_masked_decode(p, dev, state, timing) -> dict:
+    """The masked high-bit decoder: four stored preimages, four bits decoded.
+    Returns the K1/K2 launch counts."""
+    import random
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BggEncoding, BggPublicKey
+    from mxx_tpu_torch.decoder import DirectoryDecoderArtifacts, MaskedHighBitDecoder
+    from mxx_tpu_torch.decoder import masked_high_bit
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.sampler import FinRingDist, HashSampler
+
+    ts, td0, b0, sigma, state0 = state
+    q = p.modulus
+    rng = random.Random(12)
+    bits = [1, 0, 1, 1]
+    masks = [rng.randrange(-(q // 4) + 1, q // 4) for _ in bits]
+    g = PolyMatrix.gadget_matrix(p, 1, dev)
+    hs = HashSampler(dev)
+    torch.cuda.synchronize()
+    four_step.launches.update(fwd=0, inv=0)
+    pks, outputs = [], []
+    for i, (bit, mask) in enumerate(zip(bits, masks)):
+        a = hs.sample_hash(p, BGG_KEY, f"dec_pk_{i}", 1, p.modulus_digits, FinRingDist())
+        w = ((q // 2) * bit + mask) % q
+        bottom = -g.mul_poly_scalar(Poly.const(p, w, dev))
+        vec = state0 @ ts.preimage(p, td0, b0, a.concat_rows([bottom]))
+        pks.append(a)
+        outputs.append(masked_high_bit.MaskedHighBitEvaluatedOutput(
+            [BggEncoding(vec, BggPublicKey(a, False), None)],
+            [SimpleNamespace(plaintext=Poly.const(p, 0, dev))]))
+    ts.take()
+    rounding_ms = []
+    rounding = masked_high_bit.decode_centered_masked_matrix
+
+    def timed_rounding(*args):
+        out, ms = timed(lambda: rounding(*args))
+        rounding_ms.append(ms)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_decoder_") as tmp:
+        arts = DirectoryDecoderArtifacts(tmp, "mhb")
+        targets = {}
+
+        def sampler(idx, target):
+            targets[idx] = target
+            return ts.preimage(p, td0, b0, target)
+
+        dec = MaskedHighBitDecoder(p, 1, arts, sampler, lambda idx: f"out{idx}")
+        pre_ms = [timed(lambda i=i, a=a: dec.preprocess_public_key_matrix(i, a))[1]
+                  for i, a in enumerate(pks)]
+        _, _, pre_calls, ok_pre = ts.take()
+        stored = [arts.read_matrix(p, f"out{i}", dev) for i in range(len(pks))]
+        ok_stored = all(m.data.is_cuda and b0 @ m == targets[i] and targets[i].shape == (2, 1)
+                        for i, m in enumerate(stored))
+        n_bytes = sum(f.stat().st_size for f in Path(tmp).iterdir())
+        masked_high_bit.decode_centered_masked_matrix = timed_rounding
+        try:
+            decoded, ms_decode = timed(lambda: dec.online_decode(
+                masked_high_bit.MaskedHighBitOnlineInput(state0, outputs, [2] * len(bits))))
+        finally:
+            masked_high_bit.decode_centered_masked_matrix = rounding
+    gone = not Path(tmp).exists()
+    got = [d[0] for d in decoded]
+    ok_rest = all(not any(d[1:]) and len(d) == p.n for d in decoded)
+    torch.cuda.synchronize()
+    counts = dict(four_step.launches)
+    print(f"masked decode n={p.n} L={p.crt_depth}, secret_size 1, {len(bits)} outputs: "
+          f"{pre_calls} preimages, B0 P == target {ok_pre}, stored artifacts ({n_bytes} bytes) "
+          f"read back on the card with B0 P == target {ok_stored}; bits {got} == {bits} "
+          f"{got == bits}, other coefficients 0 {ok_rest} (masks below q/4); temporary "
+          f"directory deleted {gone}; launches in the phase: fwd {counts['fwd']}, "
+          f"inv {counts['inv']}", flush=True)
+    timing("masked decode: preprocess_public_key_matrix", statistics.median(pre_ms), "ms",
+           f" (median of {len(pre_ms)}: one 2 x 1 preimage and its artifact file)")
+    timing("masked decode: online_decode", ms_decode / len(bits), "ms per output",
+           f" ({ms_decode:.1f} ms for {len(bits)})")
+    timing("masked decode: decode_centered_masked_matrix (host big-int rounding of n "
+           "coefficients)", statistics.median(rounding_ms), "ms",
+           f" (median of {len(rounding_ms)})")
+    if not all((ok_pre, ok_stored, got == bits, ok_rest, gone)):
+        raise SystemExit("chip_smoke: masked decoder check failed")
+    require_launches("masked decode", counts)
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -973,8 +1366,20 @@ def main() -> None:
     fe_counts = drive_aky24_fe(RingParams.new(8192, 8, 28, 14), dev, timing)
     torch.cuda.empty_cache()
 
-    # 10. timings
+    # 10. one nested-RNS multiplication over lifted BGG+ wires
     p = RingParams.new(8192, 8, 28, 14)
+    nested_counts = drive_nested_rns_mul(p, dev, timing)
+    torch.cuda.empty_cache()
+
+    # 11-12. the noise refresh and the masked decoder, on one trapdoor
+    state = trapdoor_state(p, dev)
+    refresh_counts = drive_noise_refresh(p, dev, state, timing)
+    torch.cuda.empty_cache()
+    decode_counts = drive_masked_decode(p, dev, state, timing)
+    del state
+    torch.cuda.empty_cache()
+
+    # 13. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -1035,7 +1440,9 @@ def main() -> None:
     # (each read around that path alone) is beside it
     by_path = {d: {"preimage": counts[d], "bgg circuit": bgg_counts[d],
                    "lwe lut chain": lut_counts[d], "diamond we": we_counts[d],
-                   "aky24 fe": fe_counts[d]} for d in ("fwd", "inv")}
+                   "aky24 fe": fe_counts[d], "nested rns mul": nested_counts[d],
+                   "noise refresh": refresh_counts[d], "masked decode": decode_counts[d]}
+               for d in ("fwd", "inv")}
     cases = [
         ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
          lut_counts["fwd"],

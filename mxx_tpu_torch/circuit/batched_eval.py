@@ -13,6 +13,12 @@ sub-circuit calls, foreign wire types) goes through the sequential per-gate
 dispatch inside the same level walk, so `eval_batched` accepts any circuit
 `eval` accepts.
 
+A batch is cut into parts whose wires fit `config.lut_bytes_limit()`, the
+bound the port puts on one buffer: a level of a nested-RNS circuit holds
+about a thousand same-kind gates, and one op over all of them at n=2^13, L=8
+would need several times their 8-16 GB in temporaries. Parts give the same
+bits, and each part's inputs are released before the next part runs.
+
 Results stay on the device: each gate's output is a view of its batch's
 result tensor. The batched decomposition transforms through `ntt_inv_auto` /
 `ntt_fwd_auto`, so on a card it runs the four-step kernels.
@@ -22,13 +28,14 @@ from __future__ import annotations
 
 import torch
 
+from .. import config
 from ..bgg import BggEncoding, BggPublicKey
 from ..matrix import PolyMatrix
 from ..ops.decompose import digit_decompose
 from ..ops.elementwise import ew_add, ew_mul, ew_sub
 from ..ops.zq_matmul import zq_matmul
 from ..ring.ntt import ntt_fwd_auto, ntt_inv_auto
-from ..ring.poly import EVAL, Poly, scalar_poly
+from ..ring.poly import COEFF, EVAL, Poly, scalar_poly
 from .gate import ADD, INPUT, LARGE_SCALAR_MUL, MUL, PUB_LUT, SMALL_SCALAR_MUL, SUB
 
 MIN_BATCH = 3
@@ -144,6 +151,14 @@ class WireStore:
         return self.spilled.pop(gid, default)
 
 
+def _parts(gates, wire, least: int):
+    """`gates` cut into runs whose wires (each the size of `wire`) fit
+    `config.lut_bytes_limit()`; no run is shorter than `least` unless it is
+    the last."""
+    step = max(least, config.lut_bytes_limit() // max(1, WireStore._wire_bytes(wire)))
+    return [gates[i : i + step] for i in range(0, len(gates), step)]
+
+
 def _wire_sig(circuit, wires, g):
     """Group signature: gates with equal signatures batch together."""
     ins = [wires[i] for i in g.inputs]
@@ -180,7 +195,11 @@ def _unstack(params, data, count, rows) -> list[PolyMatrix]:
 
 
 def _stack_polys(polys) -> torch.Tensor:
-    return torch.stack([p.to_eval().data for p in polys], dim=1)  # [L, B, n]
+    """[L, B, n] EVAL data. Polys all in COEFF form (the gate scalars of a
+    batch) take one batched transform instead of one each."""
+    if all(p.fmt == COEFF for p in polys):
+        return ntt_fwd_auto(torch.stack([p.data for p in polys], dim=1), polys[0].params)
+    return torch.stack([p.to_eval().data for p in polys], dim=1)
 
 
 def _stack_b(mats) -> torch.Tensor:
@@ -345,8 +364,6 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
     `live_bytes_budget` (or MXX_CIRCUIT_LIVE_BYTES_BUDGET), idle wires beyond
     the budget spill to host compact bytes (pass `wire_store_out=[]` to
     receive the WireStore for peak/spill introspection)."""
-    from .. import config
-
     assert len(inputs) == circuit.num_input
     uses = circuit.use_counts()
     budget = (
@@ -415,34 +432,36 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
                 m = w.vector if hasattr(w, "vector") else w.matrix
                 lut_groups.setdefault((type(w).__name__, m.shape), []).append(g)
             for group in lut_groups.values():
-                if len(group) < 2:
-                    singles.extend(group)
-                    continue
-                items = [
-                    (circuit.luts[g.payload], wires[g.inputs[0]], g.gate_id, g.payload)
-                    for g in group
-                ]
-                for g, out in zip(group, plt_batch(params, items)):
-                    wires[g.gate_id] = out
-                    consume(g)
+                for part in _parts(group, wires[group[0].inputs[0]], 2):
+                    if len(part) < 2:
+                        singles.extend(part)
+                        continue
+                    items = [
+                        (circuit.luts[g.payload], wires[g.inputs[0]], g.gate_id, g.payload)
+                        for g in part
+                    ]
+                    for g, out in zip(part, plt_batch(params, items)):
+                        wires[g.gate_id] = out
+                        consume(g)
         else:
             singles.extend(lut_gates)
-        for sig, gates in groups.items():
-            if len(gates) < MIN_BATCH:
-                singles.extend(gates)
-                continue
-            kind = sig[0]
-            if kind in (ADD, SUB):
-                outs = _exec_add_sub(params, gates, wires)
-            elif kind == SMALL_SCALAR_MUL:
-                outs = _exec_scalar_mul(params, gates, wires, resolve)
-            elif kind == LARGE_SCALAR_MUL:
-                outs = _exec_large_scalar_mul(params, gates, wires, resolve)
-            else:
-                outs = _exec_mul(params, gates, wires)
-            for g, out in zip(gates, outs):
-                wires[g.gate_id] = out
-                consume(g)
+        for sig, group in groups.items():
+            for gates in _parts(group, wires[group[0].inputs[0]], MIN_BATCH):
+                if len(gates) < MIN_BATCH:
+                    singles.extend(gates)
+                    continue
+                kind = sig[0]
+                if kind in (ADD, SUB):
+                    outs = _exec_add_sub(params, gates, wires)
+                elif kind == SMALL_SCALAR_MUL:
+                    outs = _exec_scalar_mul(params, gates, wires, resolve)
+                elif kind == LARGE_SCALAR_MUL:
+                    outs = _exec_large_scalar_mul(params, gates, wires, resolve)
+                else:
+                    outs = _exec_mul(params, gates, wires)
+                for g, out in zip(gates, outs):
+                    wires[g.gate_id] = out
+                    consume(g)
         # deterministic order for the sequential remainder
         for g in sorted(singles, key=lambda g: g.gate_id):
             if g.kind == INPUT:

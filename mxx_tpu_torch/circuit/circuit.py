@@ -161,7 +161,14 @@ class PolyCircuit:
         return self.small_scalar_mul(self.const_one_gate(), digits)
 
     def const_poly(self, poly) -> int:
-        return self.large_scalar_mul(self.const_one_gate(), poly.coeffs())
+        return self.const_coeffs(poly.coeffs())
+
+    def const_coeffs(self, coeffs: list[int]) -> int:
+        """Constant wire from host integer coefficients: the gate `const_poly`
+        builds, with no `Poly` made on any device. Gadget code uses it so that one
+        circuit evaluates over wires on either device (a gate's scalar moves
+        to its input wire's device at dispatch)."""
+        return self.large_scalar_mul(self.const_one_gate(), coeffs)
 
     def add_gate(self, left: int, right: int) -> int:
         return self._new_gate(ADD, [left, right])

@@ -4,8 +4,9 @@ The functions take and give numpy arrays (`np.asarray` of a jax array is
 one), so this module imports neither jax nor `mxx_tpu`: the tests use it to
 run the port on the JAX package's trapdoor, public matrix, keys, BGG+ public
 keys, encodings and secrets, a Diamond injector's final checkpoints, Diamond
-WE ciphertexts and the AKY24 FE keys and ciphertexts. Artifact files need no
-bridge: both packages write the same bytes.
+WE ciphertexts, the AKY24 FE keys and ciphertexts and a noise refresher's
+material. Artifact files need no bridge: both packages write the same bytes.
+Native GSW ciphertexts are Python ints and cross as they are.
 """
 
 from __future__ import annotations
@@ -123,6 +124,23 @@ def aky24_func_key_from_numpy(params: RingParams, k_f, fmt: str,
                               device="cuda") -> Aky24FuncKey:
     """AKY24 function key K_f from its residues uint32[L, rows, 1, n]."""
     return Aky24FuncKey(poly_matrix_from_numpy(params, k_f, fmt, device))
+
+
+def refresh_material_from_numpy(params: RingParams, material: dict, device="cuda") -> dict:
+    """The dict `DiamondNoiseRefresher.preprocess` returns, made by the JAX
+    package: `mask_value` is an int; `a_m`, `p_mask` and `p_decoder` are
+    (residues, fmt) pairs; `digit_pks` and `p_digits` are lists of such pairs."""
+    def mat(pair):
+        return poly_matrix_from_numpy(params, *pair, device)
+
+    return {
+        "mask_value": int(material["mask_value"]),
+        "a_m": mat(material["a_m"]),
+        "digit_pks": [mat(m) for m in material["digit_pks"]],
+        "p_mask": mat(material["p_mask"]),
+        "p_digits": [mat(m) for m in material["p_digits"]],
+        "p_decoder": mat(material["p_decoder"]),
+    }
 
 
 def key_from_numpy(key, device="cuda") -> torch.Tensor:

@@ -75,6 +75,10 @@ class Poly:
         return Poly.const(params, elem.value, device)
 
     @staticmethod
+    def from_power_of_base_to_constant(params: RingParams, i: int, device="cuda") -> "Poly":
+        return Poly.const(params, 1 << (params.base_bits * i), device)
+
+    @staticmethod
     def from_int_coeffs(params: RingParams, coeffs, device="cuda") -> "Poly":
         """Coefficient-order construction from ints (arbitrary precision)."""
         if len(coeffs) != params.n:

@@ -388,7 +388,7 @@ class TrapdoorSampler:
         if mesh is not None:
             raise NotImplementedError(
                 "preimage_batched_sharded runs on one device; sharding over a mesh is not "
-                "ported (ROADMAP Queue 1, item 9)")
+                "ported (ROADMAP Queue 1, the parallel/{mesh,crt_collective} item)")
         if not targets:
             raise ValueError("preimage_batched_sharded requires targets")
         combined = targets[0].to_eval().concat_columns(targets[1:])
