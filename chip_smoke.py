@@ -84,13 +84,34 @@ no package beside it, a kernel that does not build, launch or agree):
    (q/2) bit + a centered mask below q/4: the four bits come back and
    B0 preimage == target for each stored artifact; K1 and K2 launched in
    each of phases 10-12 (counters reset before, read after);
-13. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+13. preimage-backed slot transfer at the same ring over packed encodings
+   (S = 3 slots, d = 1, zero-error aux; the circuit of
+   tests/test_slot_transfer_preimage.py: one slot transfer
+   [(2, -), (0, x3), (1, -)] of [2, 5, 7], then a slot reduce of its
+   output): the offline pass and `sample_aux_matrices` into a temporary
+   directory, then a fresh online evaluator that only reads the artifacts;
+   checked: online public keys == the offline pass, plaintexts [7, 6, 5]
+   and 7 + 6X + 5X^2, c_s == sigma_s A - x_s sigma_s G exactly on every
+   slot, B P == target for every preimage;
+14. `PolyMatrix.modulus_switch` of a uniform [1, 16] matrix at the same ring
+   to each of its 8 limbs: every coefficient of 4 entries against the exact
+   host rounding (c P + q // 2) // q mod P, and every residue against the
+   plain limb-by-limb numpy version, zero mismatches;
+15. Diamond iO in packed payload mode (payload_slots 4) with debug replay,
+   the shape of the JAX package's test_diamond_io_packed_payload_e2e, at a
+   ring cut to what the card holds (n=2^12, L=2, crt_bits 28, base_bits 14;
+   the printed line gives the cut and the bytes that forced it): the CI PRF
+   config, the debug LUT evaluators, XOR and AND of two bits; obfuscate,
+   eval of [0, 1] and [1, 1]; checked: both decode to [a ^ b, a & b],
+   c_one == sigma (A_one - G) exactly, K1/K2 launched in each of phases
+   13 and 15;
+16. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, each kernel against its plain version at the largest transform of
    the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
    profiled batched encoding pass, its device time split by stage;
-14. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+17. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
    path's count beside it in `launches_by_path`; each kernel's least time
    `bound_ms`, the larger of its device-memory time and its integer floor,
    and its share `pct_of_bound`; `library_ms` null, since no PyTorch call
@@ -1290,6 +1311,319 @@ def drive_masked_decode(p, dev, state, timing) -> dict:
     return counts
 
 
+ST_KEY = bytes([5] * 32)
+DIO_RING = (4096, 2, 28, 14)  # n, L, crt_bits, base_bits of the diamond io phase
+DIO_SLOTS = 4
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def drive_slot_transfer(p, dev, timing) -> dict:
+    """Preimage-backed slot transfer over packed encodings (S = 3, d = 1):
+    one slot transfer and one slot reduce of its output, the offline pass
+    (pubkeys, `sample_aux_matrices` into a temporary directory), then a fresh
+    online evaluator that only reads the artifacts. Returns the K1/K2 launch
+    counts of the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BGGPublicKeySampler
+    from mxx_tpu_torch.bgg.poly_encoding import BGGPolyEncodingSampler
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
+    from mxx_tpu_torch.slot_transfer.preimage import (
+        BggPolyEncodingSTEvaluator,
+        BggPublicKeySTEvaluator,
+    )
+    from mxx_tpu_torch.storage import init_storage_system, wait_for_all_writes
+
+    S = 3
+    secret = UniformSampler(seed=90, device=dev).sample_poly(p, TernaryDist())
+    pubkeys = BGGPublicKeySampler(ST_KEY, 1, dev).sample(p, b"st", [True])
+    sampler = BGGPolyEncodingSampler(p, [secret], S, None, seed=91)
+    encs = sampler.sample(p, pubkeys, [[Poly.const(p, v, dev) for v in (2, 5, 7)]])
+    t_row = PolyMatrix.from_poly_row(p, [secret])
+    s_mats = [PolyMatrix.from_polys(p, [[m]]) for m in sampler.masks]
+    circuit = PolyCircuit()
+    w = circuit.input(1)
+    moved = circuit.slot_transfer_gate(w[0], [(2, None), (0, 3), (1, None)])
+    circuit.output([moved, circuit.slot_reduce_gate([moved], S)])
+
+    calls = []  # (ms, columns, B, P, target): checked after the timed pass
+    inner = TrapdoorSampler.preimage
+
+    def counted(self, params, trapdoor, public_matrix, target):
+        out, ms = timed(lambda: inner(self, params, trapdoor, public_matrix, target))
+        calls.append((ms, target.ncol, public_matrix, out, target))
+        return out
+
+    tmp = Path(tempfile.mkdtemp(prefix="mxx_slot_transfer_"))
+    try:
+        torch.cuda.synchronize()
+        four_step.launches.update(fwd=0, inv=0)
+        init_storage_system(tmp)
+        st_pk = BggPublicKeySTEvaluator(ST_KEY, S, 4.578, 0.0, tmp, seed=92, device=dev)
+        TrapdoorSampler.preimage = counted
+        try:
+            def offline():
+                pk = circuit.eval(p, pubkeys[0], pubkeys[1:], slot_transfer_evaluator=st_pk)
+                st_pk.sample_aux_matrices(p, s_mats)
+                wait_for_all_writes()
+                return pk
+            result_pk, ms_off = timed(offline)
+        finally:
+            TrapdoorSampler.preimage = inner
+        nbytes = dir_bytes(tmp)
+        b0 = st_pk.load_b0_matrix_checkpoint(p)
+
+        def online():
+            ev = BggPolyEncodingSTEvaluator(ST_KEY, tmp, st_pk.checkpoint_prefix(p), p,
+                                            t_row @ b0)
+            return circuit.eval(p, encs[0], encs[1:], slot_transfer_evaluator=ev)
+        got, ms_on = timed(online)
+        counts = dict(four_step.launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    g = PolyMatrix.gadget_matrix(p, 1, dev)
+    sg = sampler.secret_mat @ g
+
+    def exact(enc):
+        sa = sampler.secret_mat @ enc.pubkey.matrix
+        return all(enc.vector(s) == sa.slice_rows(s, s + 1)
+                   - sg.slice_rows(s, s + 1).mul_poly_scalar(enc.plaintext(s))
+                   for s in range(enc.num_slots))
+
+    ok_keys = all(a.pubkey == b for a, b in zip(got, result_pk))
+    ok_pts = ([x.const_coeff() for x in got[0].plaintexts] == [7, 6, 5]
+              and got[1].plaintext(0).coeffs()[:3] == [7, 6, 5])
+    ok_inv = exact(got[0]) and exact(got[1])
+    ok_pre = all(b @ x == t for _, _, b, x, t in calls)
+    ms_pre = sum(c[0] for c in calls)
+    cols = sum(c[1] for c in calls)
+    print(f"slot transfer n={p.n} L={p.crt_depth} S={S} d=1: transfer [(2, -), (0, x3), (1, -)] "
+          f"then reduce: online pubkeys == offline pass {ok_keys}, plaintexts [7, 6, 5] and "
+          f"7 + 6X + 5X^2 {ok_pts}, c_s == sigma_s A - x_s sigma_s G on every slot {ok_inv} "
+          f"(tolerance 0: exact); {len(calls)} preimage calls, {cols} columns, B P == target "
+          f"{ok_pre}; artifacts {nbytes} B (directory deleted); launches in the phase: fwd "
+          f"{counts['fwd']}, inv {counts['inv']}", flush=True)
+    timing("slot transfer: offline (pubkey pass, aux preimages, writes)", ms_off, "ms",
+           f" ({cols / ms_pre * 1e3:.1f} preimage-cols/s over {len(calls)} calls, "
+           f"{ms_pre:.1f} ms; {nbytes} B of artifacts)")
+    timing("slot transfer: online pass (reads and products)", ms_on, "ms")
+    if not all((ok_keys, ok_pts, ok_inv, ok_pre)):
+        raise SystemExit("chip_smoke: slot transfer check failed")
+    require_launches("slot transfer", counts)
+    return counts
+
+
+def ms_plain(p, data, new_modulus):
+    """The modulus switch of `PolyMatrix.modulus_switch` restated limb by
+    limb in numpy on the host (the same integer parts and float64 fractions,
+    in the same order)."""
+    import numpy as np
+
+    ints, fracs = p.ms_tables(new_modulus)
+    P = np.int64(new_modulus)
+    hi = np.zeros(data.shape[1:], dtype=np.int64)
+    fr = np.zeros(data.shape[1:], dtype=np.float64)
+    for t in range(p.crt_depth):
+        r = data[t]
+        hi = (hi + (r * ints[t]) % P) % P
+        fr = fr + r.astype(np.float64) * fracs[t]
+    fl = np.floor(fr)
+    v = (hi + (fl.astype(np.int64) + (fr - fl >= 0.5)) % P) % P
+    return np.stack([v % np.int64(q) for q in p.moduli])
+
+
+def drive_modulus_switch(p, dev, timing) -> None:
+    """`PolyMatrix.modulus_switch(q_i)` of a uniform [1, 16] matrix for each
+    limb: every coefficient of 4 sampled entries against the exact host
+    rounding (c P + q // 2) // q mod P, and the whole result against the
+    plain limb-by-limb version."""
+    import numpy as np
+
+    from mxx_tpu_torch.ring.poly import COEFF
+    from mxx_tpu_torch.sampler import FinRingDist, UniformSampler
+
+    m = UniformSampler(seed=171, device=dev).sample_uniform(p, 1, 16, FinRingDist())
+    m = type(m)(m.data, COEFF, p)
+    data = m.data.cpu().numpy()
+    q = p.modulus
+    cols = [0, 5, 10, 15]
+    coeffs = [[p.reconstruct_coeff(data[:, 0, j, t]) for t in range(p.n)] for j in cols]
+    mism_exact = mism_plain = 0
+    checked = 0
+    for P in p.moduli:
+        got = m.modulus_switch(P).data.cpu().numpy()
+        mism_plain += int((got != ms_plain(p, data, P)).sum())
+        for jj, j in enumerate(cols):
+            want = np.array([(c * P + q // 2) // q % P for c in coeffs[jj]], dtype=np.int64)
+            mism_exact += int((got[:, 0, j, :] != (want[None, :] % np.array(
+                p.moduli, dtype=np.int64)[:, None])).sum())
+            checked += p.n
+    ms = cuda_ms(lambda: m.modulus_switch(p.moduli[0]), 10)
+    print(f"modulus switch n={p.n} L={p.crt_depth} [1, 16] to each of the {p.crt_depth} limbs: "
+          f"{checked} coefficients of 4 entries against the exact host rounding, "
+          f"{mism_exact} residue mismatches; whole results against the plain limb-by-limb "
+          f"version, {mism_plain} mismatches (tolerance 0)", flush=True)
+    timing(f"modulus switch [1, 16] n={p.n} L={p.crt_depth} to q_0", ms, "ms per call")
+    if mism_exact or mism_plain:
+        raise SystemExit("chip_smoke: modulus switch check failed")
+
+
+def xor_and_builder(circuit, bits):
+    return [circuit.xor_gate(bits[0], bits[1]), circuit.and_gate(bits[0], bits[1])]
+
+
+def dio_prf_config():
+    from mxx_tpu_torch.io_protocols.prf_mask import PrfConfig
+
+    # tests/test_diamond_io.py `_ci_prf_config`
+    return PrfConfig(seed_bits=5, prf_mask_output_coeff_bits=1, p_moduli_bits=5,
+                     max_unreduced_muls=1, noise_refresh_v_bits=1,
+                     debug_encrypt_random_prg_wires=True, debug_reuse_single_material=True,
+                     refresh_wire_limit=1)
+
+
+def drive_diamond_io(p, dev, timing, slots: int = DIO_SLOTS) -> dict:
+    """Diamond iO in packed payload mode with debug replay (the JAX package's
+    `test_diamond_io_packed_payload_e2e` shape): obfuscate XOR/AND of two
+    bits into a temporary directory, evaluate [0, 1] and [1, 1], check the
+    decodes and c_one == sigma (A_one - G). Returns the K1/K2 launch counts
+    of the phase."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BGGPublicKeySampler
+    from mxx_tpu_torch.io_protocols import DiamondIO
+    from mxx_tpu_torch.io_protocols.prf_mask import PrfDebugArtifacts
+    from mxx_tpu_torch.lookup.debug import (
+        DebugBGGEncodingPltEvaluator,
+        DebugBGGPubKeyPltEvaluator,
+    )
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+
+    dio = DiamondIO(
+        p, input_count=2, batch_bits=1, seed=91, prf_config=dio_prf_config(),
+        payload_slots=slots, device=dev,
+        pk_plt_evaluator_factory=lambda s, d, hk, pre: DebugBGGPubKeyPltEvaluator(hk),
+        enc_plt_evaluator_factory=lambda s, d, obf, states, digits:
+            DebugBGGEncodingPltEvaluator(obf.hash_key,
+                                         s.injector.debug_final_secret_matrix(d, digits)),
+    )
+    parts: dict = {}
+    instrument(dio._trap, "preimage", parts, "trapdoor preimages (rebase, refresh, final, "
+               "decoder)")
+    instrument(dio, "_sample_final_output_preimage", parts, "of them final output preimages")
+    instrument(dio, "_write", parts, "artifact writes")
+    tmp = Path(tempfile.mkdtemp(prefix="mxx_diamond_io_"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        four_step.launches.update(fwd=0, inv=0)
+        with SpanLog() as obf_log:
+            obf, ms_obf = timed(lambda: dio.obfuscate(tmp, xor_and_builder))
+        nbytes = dir_bytes(tmp)
+        peak_obf = torch.cuda.max_memory_allocated()
+        results = []
+        for bits in ([0, 1], [1, 1]):
+            torch.cuda.reset_peak_memory_stats()
+            with SpanLog() as log:
+                out, ms = timed(lambda b=bits: dio.eval(tmp, obf, xor_and_builder, b))
+            results.append((bits, out, ms, list(dio.last_decode_margins), log,
+                            torch.cuda.max_memory_allocated()))
+        counts = dict(four_step.launches)
+        digits = [1, 1]
+        states = dio.injector.online_eval(tmp, obf.preprocess_out, digits)
+        sigma = dio.injector.debug_final_secret_matrix(tmp, digits)
+        one_pk = BGGPublicKeySampler(obf.hash_key, 1, dev).sample(p, b"diamond_bgg", [True] * 2)[0]
+        c_one = states[0] @ dio._read(tmp, "one_preimage")
+        ok_one = c_one == sigma @ (one_pk.matrix - PolyMatrix.gadget_matrix(p, 1, dev))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    prf = dio._prf_pipeline()
+    wrapped = dio._build_wrapped_circuit(prf, xor_and_builder, obf.unit_ct_consts,
+                                         obf.num_outputs, obf.prf_debug or PrfDebugArtifacts())
+    refresh = [c for k, c in prf.refresher._decrypt_circuits.items() if k[0] == "packed"]
+
+    def gates(c):
+        return sum(v for g, v in c.gate_counts().items() if g != "Input")
+
+    # the cut against the realistic ring, from the port's own counts
+    from mxx_tpu_torch.io_protocols.prf_mask import PrfMaskPipeline
+    from mxx_tpu_torch.ring.params import RingParams
+    from mxx_tpu_torch.sampler import TrapdoorSampler
+
+    def enc_bytes(r):  # vector and public key [L, 1, m, n], plaintext [L, n], int64
+        return (2 * r.modulus_digits + 1) * r.crt_depth * r.n * 8
+
+    full = RingParams.new(8192, 8, 28, 14)
+    wpc_full = PrfMaskPipeline(full, dio_prf_config(), bytes(32),
+                               TrapdoorSampler(full, 4.578, seed=0, device=dev), 2, 1,
+                               num_slots=slots).wires_per_ct
+    mask_inputs = wrapped.num_input - 3
+    read = sum(1 for u in wrapped.use_counts()[4:wrapped.num_input + 1] if u)
+    full_inputs = obf.num_outputs * slots * wpc_full
+    peak_eval = max(r[5] for r in results)
+    print(f"diamond io: ring cut to n={p.n}, L={p.crt_depth} from n=8192, L=8: the wrapped "
+          f"circuit's mask-ciphertext inputs are {full_inputs} vec wires x {slots} slots of "
+          f"{enc_bytes(full)} B per encoding = {full_inputs * slots * enc_bytes(full) / 1e12:.2f} "
+          f"TB at n=8192, L=8 ({wpc_full} wires per ciphertext); at L={p.crt_depth} they are "
+          f"{mask_inputs} x {slots} (the decrypt reads {read} of them, the only ones lifted) = "
+          f"{read * slots * enc_bytes(RingParams.new(8192, p.crt_depth, 28, 14)) / 1e9:.1f} GB "
+          f"at n=8192, and the measured eval peak of {peak_eval / 2**30:.2f} GiB at n={p.n} "
+          f"doubles with n, past the card's 80 GB; L={p.crt_depth} is the smallest depth at "
+          f"which the refresh rounds (at L=1 q_hat = 1 and the switch is the identity)",
+          flush=True)
+    print("diamond io: packed debug replay is the mode whose size does not grow with n: "
+          "scalar payload mode decrypts n x prf_mask_output_coeff_bits mask ciphertexts per "
+          "output and refreshes with n error ciphertexts per digit, and real mode evaluates "
+          "the Goldreich PRG over the ciphertext wires themselves", flush=True)
+    ok_dec = all(out == [b[0] ^ b[1], b[0] & b[1]] for b, out, *_ in results)
+    for bits, out, ms, margins, log, peak in results:
+        print(f"diamond io eval {bits}: decoded {out}, want {[bits[0] ^ bits[1], bits[0] & bits[1]]}"
+              f"; decode margins (distance to the nearest q/2 codeword, of q = {p.modulus}): "
+              f"{[m[1] for m in margins]}", flush=True)
+    print(f"diamond io n={p.n} L={p.crt_depth} packed payload_slots {slots}, debug replay: "
+          f"decodes {ok_dec}, c_one == sigma (A_one - G) {ok_one} (tolerance 0: exact); "
+          f"wrapped circuit {gates(wrapped)} gates ({wrapped.gate_counts().get('PubLut', 0)} "
+          f"PubLut, {wrapped.num_input} inputs), refresh decrypt circuit "
+          f"{[gates(c) for c in refresh]} gates; artifacts {nbytes} B (directory deleted); "
+          f"launches in the phase: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
+    timing("diamond io: obfuscate", ms_obf / 1e3, "s", "".join(
+        f"; {name} {obf_log.total_ms(span) / 1e3:.3f} s" for name, span in (
+            ("injector preprocess", "diamond_injector.preprocess"),
+            ("PRF public-key path", "prf_pipeline.pk_round_packed"),
+            ("of it packed refresh decrypts", "noise_refresh.packed_material_decrypt"),
+            ("wrapped pubkey pass", "diamond_io.pk_circuit_eval")))
+        + "".join(f"; {k} {sum(x[0] for x in v) / 1e3:.3f} s ({len(v)} calls)"
+                  for k, v in parts.items()))
+    for bits, out, ms, margins, log, peak in results:
+        timing(f"diamond io: eval {bits}", ms / 1e3, "s", "".join(
+            f"; {name} {log.total_ms(span) / 1e3:.3f} s" for name, span in (
+                ("injector online", "diamond_injector.online_eval"),
+                ("PRF encoding path", "prf_pipeline.enc_round_packed"),
+                ("of it packed refresh decrypts", "noise_refresh.packed_material_decrypt"),
+                ("wrapped encoding pass", "diamond_io.enc_circuit_eval")))
+            + f"; peak device memory {peak / 2**30:.2f} GiB")
+    timing("diamond io: obfuscate peak device memory", peak_obf / 2**30, "GiB",
+           f"; artifacts {nbytes} B")
+    if not (ok_dec and ok_one):
+        raise SystemExit("chip_smoke: Diamond iO check failed")
+    require_launches("diamond io", counts)
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -1379,7 +1713,18 @@ def main() -> None:
     del state
     torch.cuda.empty_cache()
 
-    # 13. timings
+    # 13. preimage-backed slot transfer over packed encodings
+    st_counts = drive_slot_transfer(p, dev, timing)
+    torch.cuda.empty_cache()
+
+    # 14. modulus switching to each limb
+    drive_modulus_switch(p, dev, timing)
+
+    # 15. Diamond iO, packed payload, debug replay, at a ring cut to fit the card
+    dio_counts = drive_diamond_io(RingParams.new(*DIO_RING), dev, timing)
+    torch.cuda.empty_cache()
+
+    # 16. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -1441,7 +1786,8 @@ def main() -> None:
     by_path = {d: {"preimage": counts[d], "bgg circuit": bgg_counts[d],
                    "lwe lut chain": lut_counts[d], "diamond we": we_counts[d],
                    "aky24 fe": fe_counts[d], "nested rns mul": nested_counts[d],
-                   "noise refresh": refresh_counts[d], "masked decode": decode_counts[d]}
+                   "noise refresh": refresh_counts[d], "masked decode": decode_counts[d],
+                   "slot transfer": st_counts[d], "diamond io": dio_counts[d]}
                for d in ("fwd", "inv")}
     cases = [
         ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",

@@ -8,10 +8,15 @@ exact ops (`ew_*`, `zq_matmul`, `digit_decompose`, `ntt_*_auto`) take
 unchanged, so batched results are bit-identical to sequential ones.
 
 Batched kinds: Add/Sub/Mul/SmallScalarMul/LargeScalarMul over
-BggEncoding/BggPublicKey wires. Everything else (PubLut, slot gates,
-sub-circuit calls, foreign wire types) goes through the sequential per-gate
-dispatch inside the same level walk, so `eval_batched` accepts any circuit
-`eval` accepts.
+BggEncoding/BggPublicKey wires, and over their vec wires
+(`BGGPublicKeyVec`/`BGGEncodingVec`), whose slots are independent for these
+kinds: a level's vec gates become one scalar batch of (gate, slot) stand-ins,
+and each gate's output vec is regrouped from its slots' results. PubLut gates
+go to the evaluator's `public_lookup_batch` when it has one (vec wires
+through `SlotwisePltEvaluator`). Everything else (slot gates, sub-circuit
+calls, foreign wire types) goes through the sequential per-gate dispatch
+inside the same level walk, so `eval_batched` accepts any circuit `eval`
+accepts.
 
 A batch is cut into parts whose wires fit `config.lut_bytes_limit()`, the
 bound the port puts on one buffer: a level of a nested-RNS circuit holds
@@ -30,13 +35,14 @@ import torch
 
 from .. import config
 from ..bgg import BggEncoding, BggPublicKey
+from ..bgg.vec import BGGEncodingVec, BGGPublicKeyVec
 from ..matrix import PolyMatrix
 from ..ops.decompose import digit_decompose
 from ..ops.elementwise import ew_add, ew_mul, ew_sub
 from ..ops.zq_matmul import zq_matmul
 from ..ring.ntt import ntt_fwd_auto, ntt_inv_auto
 from ..ring.poly import COEFF, EVAL, Poly, scalar_poly
-from .gate import ADD, INPUT, LARGE_SCALAR_MUL, MUL, PUB_LUT, SMALL_SCALAR_MUL, SUB
+from .gate import ADD, INPUT, LARGE_SCALAR_MUL, MUL, PUB_LUT, SMALL_SCALAR_MUL, SUB, Gate
 
 MIN_BATCH = 3
 
@@ -45,6 +51,18 @@ _BATCHABLE = {ADD, SUB, MUL, SMALL_SCALAR_MUL, LARGE_SCALAR_MUL}
 
 def _is_bgg(w) -> bool:
     return isinstance(w, (BggEncoding, BggPublicKey))
+
+
+def _is_vec(w) -> bool:
+    return isinstance(w, (BGGEncodingVec, BGGPublicKeyVec))
+
+
+def _vec_slots(w) -> tuple:
+    return w.keys if isinstance(w, BGGPublicKeyVec) else w.encodings
+
+
+def _vec_ctor(w):
+    return BGGPublicKeyVec.new if isinstance(w, BGGPublicKeyVec) else BGGEncodingVec.new
 
 
 class WireStore:
@@ -72,6 +90,9 @@ class WireStore:
             return int(w.vector.data.nbytes) + int(w.pubkey.matrix.data.nbytes)
         if isinstance(w, BggPublicKey):
             return int(w.matrix.data.nbytes)
+        if _is_vec(w):  # tracked, never spilled; a vec's slots share one shape
+            slots = _vec_slots(w)
+            return len(slots) * WireStore._wire_bytes(slots[0]) if slots else 0
         return 0  # foreign wire types are not tracked or spilled
 
     # -- compact-form spill/rehydrate
@@ -180,6 +201,62 @@ def _wire_sig(circuit, wires, g):
     return (g.kind, kinds, tuple(shapes))
 
 
+def _vec_sig(circuit, wires, g):
+    """Group signature of a gate over vec wires of one slot count: the
+    scalar signature of its slot-0 stand-in, tagged with the slot count."""
+    ins = [wires[i] for i in g.inputs]
+    if not ins or not all(_is_vec(w) for w in ins):
+        return None
+    ns = len(_vec_slots(ins[0]))
+    if any(len(_vec_slots(w)) != ns for w in ins):
+        return None
+    if g.kind == MUL and isinstance(ins[0], BGGEncodingVec) and any(
+        e.plaintext is None for e in ins[0].encodings
+    ):
+        return None
+    sig = _wire_sig(circuit, {i: _vec_slots(wires[i])[0] for i in g.inputs}, g)
+    return None if sig is None else ("vec", ns) + sig
+
+
+def _flatten_vec(gates, wires):
+    """One scalar stand-in gate per (gate, slot), its inputs keyed
+    (input id, slot) in a map of the slots' wires."""
+    slot_wires = {}
+    pseudo = []
+    for g in gates:
+        ns = len(_vec_slots(wires[g.inputs[0]]))
+        for s in range(ns):
+            keys = []
+            for i in g.inputs:
+                slot_wires[(i, s)] = _vec_slots(wires[i])[s]
+                keys.append((i, s))
+            pseudo.append(Gate(g.gate_id, g.kind, tuple(keys), g.payload))
+    return pseudo, slot_wires
+
+
+def _eval_form(w, memo: dict):
+    """The wire with its matrices in EVAL form, each distinct wire converted
+    once (a vec that repeats one wire in every slot would otherwise be
+    transformed again by every gate that stacks it); equal in value, so
+    results are the same bits."""
+    if id(w) in memo:
+        return memo[id(w)]
+    if isinstance(w, BggPublicKey):
+        out = w if w.matrix.fmt == EVAL else BggPublicKey(w.matrix.to_eval(), w.reveal_plaintext)
+    elif isinstance(w, BggEncoding):
+        out = w
+        if w.vector.fmt != EVAL or w.pubkey.matrix.fmt != EVAL:
+            out = BggEncoding(w.vector.to_eval(), _eval_form(w.pubkey, memo), w.plaintext)
+    elif _is_vec(w):
+        slots = _vec_slots(w)
+        conv = [_eval_form(x, memo) for x in slots]
+        out = w if all(a is b for a, b in zip(conv, slots)) else _vec_ctor(w)(conv)
+    else:
+        out = w
+    memo[id(w)] = out
+    return out
+
+
 def _pk(w) -> PolyMatrix:
     return w.pubkey.matrix if isinstance(w, BggEncoding) else w.matrix
 
@@ -191,7 +268,7 @@ def _stack(mats) -> torch.Tensor:
 
 def _unstack(params, data, count, rows) -> list[PolyMatrix]:
     """Per-gate matrices: row views of a batched [L, B*rows, c, n] result."""
-    return [PolyMatrix(data[:, i * rows : (i + 1) * rows], EVAL, params) for i in range(count)]
+    return [PolyMatrix(v, EVAL, params) for v in torch.split(data, rows, dim=1)[:count]]
 
 
 def _stack_polys(polys) -> torch.Tensor:
@@ -257,7 +334,16 @@ def _exec_add_sub(params, gates, wires):
 
 
 def _scalar_polys(params, gates, resolve, device) -> list[Poly]:
-    return [scalar_poly(params, list(resolve(g)), device) for g in gates]
+    """Each gate's scalar poly; gates with one scalar (the slots of a vec
+    gate, a constant used twice) share one."""
+    made: dict = {}
+    out = []
+    for g in gates:
+        scalar = tuple(resolve(g))
+        if scalar not in made:
+            made[scalar] = scalar_poly(params, list(scalar), device)
+        out.append(made[scalar])
+    return out
 
 
 def _exec_scalar_mul(params, gates, wires, resolve):
@@ -374,9 +460,14 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
     wires = WireStore(params, budget)
     if wire_store_out is not None:
         wire_store_out.append(wires)
-    wires[0] = one
-    for i, v in enumerate(inputs):
-        wires[i + 1] = v
+    # vec wires go to EVAL form once here (their slots repeat the one and -k
+    # wires, which every gate that stacks them would transform again); a
+    # scalar wire keeps its form
+    memo: dict = {}
+    for i, v in enumerate([one] + list(inputs)):
+        wires[i] = _eval_form(v, memo) if _is_vec(v) else v
+    del memo
+    one = wires[0]
     remaining = list(uses)
     out_set = set(circuit.output_ids)
     call_cache: dict = {}
@@ -408,6 +499,15 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
 
     plt_batch = getattr(plt_evaluator, "public_lookup_batch", None)
 
+    def exec_group(kind, gates, wire_map):
+        if kind in (ADD, SUB):
+            return _exec_add_sub(params, gates, wire_map)
+        if kind == SMALL_SCALAR_MUL:
+            return _exec_scalar_mul(params, gates, wire_map, resolve)
+        if kind == LARGE_SCALAR_MUL:
+            return _exec_large_scalar_mul(params, gates, wire_map, resolve)
+        return _exec_mul(params, gates, wire_map)
+
     for level in circuit.compute_levels():
         # group batchable gates by signature
         groups: dict = {}
@@ -416,24 +516,29 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
         for gid in level:
             g = circuit.gates[gid]
             if g.kind in _BATCHABLE:
-                sig = _wire_sig(circuit, wires, g)
+                sig = _wire_sig(circuit, wires, g) or _vec_sig(circuit, wires, g)
                 if sig is not None:
                     groups.setdefault(sig, []).append(g)
                     continue
-            elif g.kind == PUB_LUT and plt_batch is not None and _is_bgg(wires[g.inputs[0]]):
+            elif g.kind == PUB_LUT and plt_batch is not None and (
+                _is_bgg(wires[g.inputs[0]]) or _is_vec(wires[g.inputs[0]])
+            ):
                 lut_gates.append(g)
                 continue
             singles.append(g)
-        if len(lut_gates) >= 2:
+        if len(lut_gates) >= 2 or any(_is_vec(wires[g.inputs[0]]) for g in lut_gates):
             # group by input wire type/shape: the batch evaluators stack operands
             lut_groups: dict = {}
             for g in lut_gates:
                 w = wires[g.inputs[0]]
-                m = w.vector if hasattr(w, "vector") else w.matrix
-                lut_groups.setdefault((type(w).__name__, m.shape), []).append(g)
-            for group in lut_groups.values():
-                for part in _parts(group, wires[group[0].inputs[0]], 2):
-                    if len(part) < 2:
+                ns = len(_vec_slots(w)) if _is_vec(w) else 0
+                x = _vec_slots(w)[0] if ns else w
+                m = x.vector if hasattr(x, "vector") else x.matrix
+                lut_groups.setdefault((type(w).__name__, ns, m.shape), []).append(g)
+            for (_, ns, _), group in lut_groups.items():
+                least = 1 if ns else 2
+                for part in _parts(group, wires[group[0].inputs[0]], least):
+                    if len(part) < least:
                         singles.extend(part)
                         continue
                     items = [
@@ -446,20 +551,25 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
         else:
             singles.extend(lut_gates)
         for sig, group in groups.items():
+            if sig[0] == "vec":
+                # every (gate, slot) of the group in scalar batches, then
+                # each gate's vec regrouped from its slots
+                pseudo, slot_wires = _flatten_vec(group, wires)
+                slot_outs = []
+                for part in _parts(pseudo, slot_wires[pseudo[0].inputs[0]], 1):
+                    slot_outs.extend(exec_group(sig[2], part, slot_wires))
+                del slot_wires
+                ns = sig[1]
+                for j, g in enumerate(group):
+                    ctor = _vec_ctor(wires[g.inputs[0]])
+                    wires[g.gate_id] = ctor(slot_outs[j * ns : (j + 1) * ns])
+                    consume(g)
+                continue
             for gates in _parts(group, wires[group[0].inputs[0]], MIN_BATCH):
                 if len(gates) < MIN_BATCH:
                     singles.extend(gates)
                     continue
-                kind = sig[0]
-                if kind in (ADD, SUB):
-                    outs = _exec_add_sub(params, gates, wires)
-                elif kind == SMALL_SCALAR_MUL:
-                    outs = _exec_scalar_mul(params, gates, wires, resolve)
-                elif kind == LARGE_SCALAR_MUL:
-                    outs = _exec_large_scalar_mul(params, gates, wires, resolve)
-                else:
-                    outs = _exec_mul(params, gates, wires)
-                for g, out in zip(gates, outs):
+                for g, out in zip(gates, exec_group(sig[0], gates, wires)):
                     wires[g.gate_id] = out
                     consume(g)
         # deterministic order for the sequential remainder

@@ -4,9 +4,10 @@ The functions take and give numpy arrays (`np.asarray` of a jax array is
 one), so this module imports neither jax nor `mxx_tpu`: the tests use it to
 run the port on the JAX package's trapdoor, public matrix, keys, BGG+ public
 keys, encodings and secrets, a Diamond injector's final checkpoints, Diamond
-WE ciphertexts, the AKY24 FE keys and ciphertexts and a noise refresher's
-material. Artifact files need no bridge: both packages write the same bytes.
-Native GSW ciphertexts are Python ints and cross as they are.
+WE ciphertexts, the AKY24 FE keys and ciphertexts, a noise refresher's
+material, packed and vec BGG+ wires, and Diamond iO obfuscations. Artifact
+files need no bridge: both packages write the same bytes. Native GSW
+ciphertexts are Python ints and cross as they are.
 """
 
 from __future__ import annotations
@@ -15,10 +16,15 @@ import numpy as np
 import torch
 
 from .bgg import BggEncoding, BggPublicKey
+from .bgg.poly_encoding import BggPolyEncoding
+from .bgg.vec import BGGEncodingVec, BGGPublicKeyVec
 from .func_enc import Aky24Ciphertext, Aky24FuncKey, Aky24MasterKey
 from .input_injector import DiamondInjectorPreprocessOut
+from .io_protocols import DiamondIOObf
+from .io_protocols.prf_mask import PrfDebugArtifacts
 from .matrix import PolyMatrix
 from .ring.params import RingParams
+from .noise_refresh.naive_vec import RefreshMaterialCts
 from .ring.poly import Poly
 from .sampler.trapdoor import Trapdoor
 from .we import DiamondWECiphertext
@@ -141,6 +147,70 @@ def refresh_material_from_numpy(params: RingParams, material: dict, device="cuda
         "p_digits": [mat(m) for m in material["p_digits"]],
         "p_decoder": mat(material["p_decoder"]),
     }
+
+
+def poly_encoding_from_numpy(params: RingParams, vectors, pubkey_matrix, reveal_plaintext: bool,
+                             plaintexts=None, device="cuda") -> BggPolyEncoding:
+    """A packed encoding: its slot rows and its shared public key as
+    (residues, fmt) pairs, and its slot plaintexts as a list of such pairs
+    (None where they are hidden)."""
+    pts = None
+    if plaintexts is not None:
+        pts = tuple(poly_from_numpy(params, a, fmt, device) for a, fmt in plaintexts)
+    return BggPolyEncoding(
+        poly_matrix_from_numpy(params, *vectors, device),
+        public_key_from_numpy(params, *pubkey_matrix, reveal_plaintext, device),
+        pts,
+    )
+
+
+def public_key_vec_from_numpy(params: RingParams, keys, device="cuda") -> BGGPublicKeyVec:
+    """A vec of public keys from (residues, fmt, reveal_plaintext) per slot."""
+    return BGGPublicKeyVec.new(
+        [public_key_from_numpy(params, m, fmt, reveal, device) for m, fmt, reveal in keys]
+    )
+
+
+def encoding_vec_from_numpy(params: RingParams, encodings, device="cuda") -> BGGEncodingVec:
+    """A vec of encodings, one (vector, pubkey matrix, reveal_plaintext,
+    plaintext) tuple per slot as in `aky24_ciphertext_from_numpy`."""
+    encs = []
+    for vector, pk_matrix, reveal, plaintext in encodings:
+        pk = public_key_from_numpy(params, *pk_matrix, reveal, device)
+        pt, pt_fmt = plaintext if plaintext is not None else (None, None)
+        encs.append(encoding_from_numpy(params, *vector, pk, pt, pt_fmt, device))
+    return BGGEncodingVec.new(encs)
+
+
+def diamond_io_obf_from_numpy(params: RingParams, hash_key: bytes, trapdoors, pub_matrices,
+                              num_outputs: int, unit_ct_consts, seed_cts, prf_debug=None,
+                              device="cuda") -> DiamondIOObf:
+    """A Diamond iO obfuscation made by the JAX package: its hash key, the
+    injector's final checkpoints (as in `preprocess_out_from_numpy`), its
+    output count, unit-ciphertext constants and seed ciphertexts (Python
+    ints), and its debug-replay artifacts as a dict of `prg_cts`,
+    `refresh_material` (per round and branch an (errors, masks) pair),
+    `final_mask_cts` and `original_seed_bits`, or None. With the artifact
+    directory it was written to, `DiamondIO.eval` of the port evaluates it."""
+    debug = None
+    if prf_debug is not None:
+        debug = PrfDebugArtifacts(
+            prg_cts=list(prf_debug["prg_cts"]),
+            refresh_material=[
+                [RefreshMaterialCts(errors=list(e), masks=list(m)) for e, m in per_round]
+                for per_round in prf_debug["refresh_material"]
+            ],
+            final_mask_cts=list(prf_debug["final_mask_cts"]),
+            original_seed_bits=list(prf_debug["original_seed_bits"]),
+        )
+    top_u, bottom_u = unit_ct_consts
+    consts = ((tuple(top_u), tuple(bottom_u)) if isinstance(top_u, (list, tuple))
+              else (int(top_u), int(bottom_u)))
+    return DiamondIOObf(
+        bytes(hash_key),
+        preprocess_out_from_numpy(params, trapdoors, pub_matrices, device),
+        int(num_outputs), consts, list(seed_cts), debug,
+    )
 
 
 def key_from_numpy(key, device="cuda") -> torch.Tensor:

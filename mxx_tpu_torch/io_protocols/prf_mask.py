@@ -1,0 +1,964 @@
+"""Diamond iO PRF mask pipeline: seed encryption, per-round branch-rebased
+PRG evolution with noise refresh, and the final in-circuit mask derivation.
+
+The port's counterpart of `mxx_tpu/io_protocols/prf_mask.py` (reference:
+src/io/diamond_io/{utils.rs,circuits.rs}):
+- seed bits GSW-encrypted under the payload key k; ciphertext values are
+  public and lift onto BGG wires by scalar-multiplying the one wire
+  (utils.rs:192-230 native_ciphertexts_to_public_key_wires)
+- per injector digit round r (utils.rs:648-940 compute_prf_mask_public_key):
+  the Goldreich PRG over Ring-GSW expands the seed ciphertexts into
+  branch_count * seed_bits next-seed ciphertexts (one branch per digit
+  value); per branch b, masked_wire = prg_wire + (selector - b*one)
+  .matrix_mul(mask_matrix) carries garbage unless the runtime digit equals b,
+  and a persisted final-state preimage of [A_common - A_masked; 0] rebases
+  the selected branch onto the branch-independent hash pubkey A_common
+  (utils.rs:502-596); the rebased wires then noise-refresh
+  (NoiseRefresherNaiveVec) with persisted decoder preimages, and the
+  refreshed hash pubkeys A' seed the next round
+- eval (utils.rs:1133-1366 compute_prf_mask_seed_encoding) replays the same
+  pipeline over encoding wires, computing only the selected branch and
+  reading the stored rebase/refresh artifacts
+
+Debug replay mode (the reference's debug_encrypt_random_prg_wires test flag,
+diamond_io.rs:122-134): instead of evaluating the PRG circuits, obfuscation
+samples FRESH valid encryptions of random bits, records them in the
+obfuscation, and eval lifts the same ciphertext values — the full rebase /
+refresh / mask machinery still runs over real BGG wires.
+
+Repo specialization: scalar wires (see noise_refresh/naive_vec.py notes),
+k in {-1, +1} (integer-GSW payload; the reference's k is a ternary ring
+poly), and a refresh_wire_limit CI knob bounding how many seed-ciphertext
+component wires are rebased+refreshed per round (must be None at production
+scale; with the debug replay the remaining wires are never consumed).
+
+On the card: the pipeline works on the device of its trapdoor sampler, and
+every circuit (PRG rounds, refresh decrypts) goes through the level-batched
+evaluator. In debug replay the pipeline lifts only the wires it consumes
+(the first `refresh_wire_limit` wires of each replayed branch, and no seed
+wires, which only the real-mode PRG reads); the JAX package lifts every
+component value: 15 ciphertexts of 2,112 wires x 4 slots per round at
+n=2^12, L=2, about 33 GB of public keys that nothing reads.
+The wires it does lift, and everything derived from them, are the same bits.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass, field
+
+from ..bgg import BggEncoding, BggPublicKey
+from ..circuit import PolyCircuit
+from ..bgg.lift import lift_constants_batched
+from ..gadgets.arith.nested_rns import encode_nested_rns_value
+from ..gadgets.fhe.ring_gsw import (
+    RingGswCiphertext,
+    RingGswContext,
+    native_encrypt,
+)
+from ..gadgets.fhe_prg.goldreich import GoldreichFhePrg
+from ..matrix import PolyMatrix
+from ..noise_refresh.naive_vec import NoiseRefresherNaiveVec, RefreshMaterialCts
+from ..sampler import FinRingDist, HashSampler
+from ..utils.tracing import span
+
+
+@dataclass
+class PrfConfig:
+    seed_bits: int = 5
+    prf_mask_output_coeff_bits: int = 1
+    p_moduli_bits: int = 5
+    max_unreduced_muls: int = 2  # reference DEFAULT_MAX_UNREDUCED_MULS
+    goldreich_graph_seed: bytes = b"\x11" * 32
+    noise_refresh_v_bits: int = 1
+    noise_refresh_cbd_n: int = 1
+    # nested-RNS p-basis strategy: "small" = reference-shaped ascending small
+    # moduli (small LUT tables, more wires — suits production LWE lookup);
+    # "wide" = few large moduli (≈6x cheaper GSW muls — suits real-mode PRG
+    # evaluation where LUT tables are free). See nested_rns.sample_crt_primes_wide.
+    p_basis: str = "small"
+    # nested-RNS v-rounding scale (None = context default min(2^16, ...)):
+    # the real_to_v LUT has k*scale entries, so production-LWE-evaluator runs
+    # (one K_high preimage per table entry) must shrink it; precision needs
+    # only k < scale (see NestedRnsPolyContext rounding margin assert)
+    nested_rns_scale: int | None = None
+    debug_encrypt_random_prg_wires: bool = False
+    debug_reuse_single_material: bool = False
+    refresh_wire_limit: int | None = None
+
+
+@dataclass
+class PrfDebugArtifacts:
+    """Replayed ciphertexts recorded at obfuscation (reference
+    debug_prg_ciphertexts / original_seed_bits, diamond_io.rs:122-134)."""
+
+    prg_cts: list = field(default_factory=list)  # [round][branch][seed_bit]
+    refresh_material: list = field(default_factory=list)  # [round][branch] (shared across wires)
+    final_mask_cts: list = field(default_factory=list)  # [output][coeff*bits]
+    original_seed_bits: list = field(default_factory=list)
+
+
+class PrfMaskPipeline:
+    def __init__(self, params, config: PrfConfig, hash_key: bytes,
+                 trap_sampler, input_count: int, batch_bits: int,
+                 secret_size: int = 1, num_slots: int = 1, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "PrfMaskPipeline runs on one device; sharding its preimages over a mesh "
+                "needs parallel/mesh.py, which is not ported (ROADMAP Queue 1, item 12)")
+        self.params = params
+        self.device = trap_sampler.device
+        self.cfg = config
+        self.hash_key = hash_key
+        self.trap = trap_sampler
+        self.input_count = input_count
+        self.batch_bits = batch_bits
+        self.branch_count = 1 << batch_bits
+        self.d = secret_size
+        # num_slots > 1 = PACKED payload mode: the GSW key is a ternary ring
+        # poly over R' = Z_Q[X']/(X'^ns + 1), ciphertext entries are R'
+        # elements riding vec-wire slots (coefficient per slot), and seed
+        # evolution runs over BGG vec wires (reference diamond_io.rs:276-310)
+        self.num_slots = num_slots
+        # the context circuit only hosts the shared LUT registry
+        self.ctx = RingGswContext(
+            PolyCircuit(), params, config.p_moduli_bits, config.max_unreduced_muls,
+            p_basis=config.p_basis, scale=config.nested_rns_scale,
+        )
+        self.refresher = NoiseRefresherNaiveVec(
+            params, self.ctx, config.noise_refresh_v_bits, hash_key,
+            secret_size=secret_size, device=self.device,
+        )
+        self._hash = HashSampler(self.device)
+        # wires per ciphertext at the circuit boundary
+        probe_circuit = self.ctx.fresh_circuit()
+        probe = RingGswCiphertext.input(self.ctx, probe_circuit)
+        self.wires_per_ct = len(probe.flatten())
+
+    # --------------------------------------------------------------- hashes
+
+    def graph_seed_for_round(self, round_idx: int) -> bytes:
+        return hashlib.sha256(
+            b"DiamondIOGoldreichPrfGraph/v1"
+            + self.cfg.goldreich_graph_seed
+            + round_idx.to_bytes(8, "little")
+        ).digest()
+
+    def _branch_mask_matrix(self, round_idx: int, branch: int, wire_idx: int,
+                            target_cols: int) -> PolyMatrix:
+        tag = (
+            b"DiamondIOPrfBranchMask/v1"
+            + round_idx.to_bytes(8, "little")
+            + branch.to_bytes(8, "little")
+            + wire_idx.to_bytes(8, "little")
+        )
+        return self._hash.sample_hash(
+            self.params, self.hash_key, tag, self.d, target_cols, FinRingDist()
+        )
+
+    def _common_rebase_pk(self, round_idx: int, wire_idx: int,
+                          target_cols: int) -> PolyMatrix:
+        tag = (
+            b"DiamondIOPrfCommonRebase/v1"
+            + round_idx.to_bytes(8, "little")
+            + wire_idx.to_bytes(8, "little")
+        )
+        return self._hash.sample_hash(
+            self.params, self.hash_key, tag, self.d, target_cols, FinRingDist()
+        )
+
+    def refresh_id(self, round_idx: int, wire_idx: int) -> bytes:
+        return b"prf_r%d_w%d" % (round_idx, wire_idx)
+
+    def material_graph_seed(self, round_idx: int, branch: int) -> bytes:
+        """Per-(round, branch) refresh-material graph seed (reference
+        prf_noise_refresh_material_graph_seed, utils.rs:428-451)."""
+        return hashlib.sha256(
+            b"DiamondIOPrfRefreshMaterial/v1"
+            + self.cfg.goldreich_graph_seed
+            + round_idx.to_bytes(8, "little")
+            + branch.to_bytes(8, "little")
+        ).digest()
+
+    @staticmethod
+    def rebase_preimage_id(round_idx: int, branch: int, wire_idx: int) -> str:
+        return f"prf_round_{round_idx}_branch_{branch}_wire_{wire_idx}_rebase_preimage"
+
+    @staticmethod
+    def refresh_preimage_id(round_idx: int, branch: int, wire_idx: int,
+                            crt_idx: int) -> str:
+        return (
+            f"prf_round_{round_idx}_branch_{branch}_wire_{wire_idx}"
+            f"_refresh_preimage_crt_{crt_idx}"
+        )
+
+    # ----------------------------------------------------------- debug PRG
+
+    def _sample_debug_prg_cts(self, k_int: int, count: int, rng,
+                              error_sigma: float, sink: list | None = None):
+        """Fresh valid encryptions of random bits (the reference's
+        sample_debug_prg_public_key_wires, utils.rs:232+)."""
+        cts = []
+        for _ in range(count):
+            bit = rng.randrange(2)
+            ct = native_encrypt(self.ctx, k_int, bit, rng, error_sigma)
+            cts.append(ct)
+            if sink is not None:
+                sink.append(bit)
+        return cts
+
+    def _ct_wire_values(self, cts) -> list[int]:
+        """Flat integer wire constants (nested-RNS residues) per ciphertext."""
+        out: list[int] = []
+        for ct in cts:
+            for row in ct:
+                for v in row:
+                    for lvl in encode_nested_rns_value(
+                        self.ctx.nested, v % self.ctx.q_big
+                    ):
+                        out.extend(lvl)
+        return out
+
+    def lift_values(self, one_wire, values: list[int]):
+        return lift_constants_batched(self.params, one_wire, values)
+
+    def _lift_consumed(self, one_wire, values: list, lift) -> list:
+        """Replayed wires of one branch: the first `refresh_wire_limit`
+        values are lifted, the rest stand as None (never consumed)."""
+        limit = min(self.cfg.refresh_wire_limit or len(values), len(values))
+        return lift(one_wire, values[:limit]) + [None] * (len(values) - limit)
+
+    def _lift_seed_wires(self, one_wire, seed_cts, packed: bool = False):
+        """The seed ciphertexts as wires: read only by the real-mode PRG
+        (and returned as they are when there are no rounds)."""
+        if self.cfg.debug_encrypt_random_prg_wires and self.input_count:
+            return None
+        if packed:
+            return self.lift_slot_values(one_wire, self._ct_slot_values(seed_cts))
+        return self.lift_values(one_wire, self._ct_wire_values(seed_cts))
+
+    # ------------------------------------------------------- packed payload
+
+    def _sample_debug_prg_cts_packed(self, k_coeffs: list[int], count: int,
+                                     rng, error_sigma: float):
+        """Packed-mode replay: fresh valid PACKED encryptions of random bits
+        under the ternary ring-poly key."""
+        from ..gadgets.fhe.packed_ring_gsw import native_encrypt_poly
+
+        ns = self.num_slots
+        cts = []
+        for _ in range(count):
+            bit = rng.randrange(2)
+            cts.append(
+                native_encrypt_poly(
+                    self.ctx, k_coeffs, [bit] + [0] * (ns - 1), rng, error_sigma
+                )
+            )
+        return cts
+
+    def _ct_slot_values(self, cts) -> list[list[int]]:
+        """Per-wire slot-value lists for packed native ciphertexts."""
+        from ..gadgets.fhe.packed_ring_gsw import packed_input_values
+
+        out: list[list[int]] = []
+        for ct in cts:
+            out.extend(packed_input_values(self.ctx, ct))
+        return out
+
+    def lift_slot_values(self, one_wire, slot_values: list[list[int]]):
+        """Lift per-wire slot-value lists onto BGG VEC wires: slot s of wire
+        w is one_wire.large_scalar_mul(slot_values[w][s]) (reference
+        diamond_io.rs:330-388 slot-wise lift), batched over (wire, slot)."""
+        from ..bgg.vec import BGGEncodingVec, BGGPublicKeyVec
+
+        ns = self.num_slots
+        flat = [v for w in slot_values for v in w]
+        lifted = lift_constants_batched(self.params, one_wire, flat)
+        ctor = BGGEncodingVec.new if isinstance(one_wire, BggEncoding) else BGGPublicKeyVec.new
+        return [
+            ctor(lifted[w * ns : (w + 1) * ns]) for w in range(len(slot_values))
+        ]
+
+    def _common_rebase_pk_slot(self, round_idx: int, wire_idx: int, slot: int,
+                               target_cols: int) -> PolyMatrix:
+        tag = (
+            b"DiamondIOPrfCommonRebaseSlot/v1"
+            + round_idx.to_bytes(8, "little")
+            + wire_idx.to_bytes(8, "little")
+            + slot.to_bytes(8, "little")
+        )
+        return self._hash.sample_hash(
+            self.params, self.hash_key, tag, self.d, target_cols, FinRingDist()
+        )
+
+    @staticmethod
+    def rebase_preimage_id_slot(round_idx: int, branch: int, wire_idx: int,
+                                slot: int) -> str:
+        return (
+            f"prf_round_{round_idx}_branch_{branch}_wire_{wire_idx}"
+            f"_slot_{slot}_rebase_preimage"
+        )
+
+    def _refresh_material_packed(self, k_coeffs: list[int], rng,
+                                 error_sigma: float) -> RefreshMaterialCts:
+        """PACKED refresh material for one (round, branch), shared by every
+        refreshed wire and slot: per gadget digit, ONE packed error ct whose
+        R' message carries an independent CBD value per payload coefficient,
+        and mask_levels * v_bits packed mask cts (one mask BIT per
+        coefficient each). This is the per-R'-coeff mask channel — material
+        no longer scales with the ring dimension n (VERDICT r2 #2)."""
+        from ..gadgets.fhe.packed_ring_gsw import native_encrypt_poly
+
+        params = self.params
+        ns = self.num_slots
+        q = self.ctx.q_big
+        digits = 1 if self.cfg.debug_reuse_single_material else params.modulus_digits
+        mask_levels = 1 if self.cfg.debug_reuse_single_material else params.crt_depth
+        v = self.cfg.noise_refresh_v_bits
+        eta = self.cfg.noise_refresh_cbd_n
+        errors, masks = [], []
+        for _ in range(digits):
+            cbd = [
+                (sum(rng.randrange(2) for _ in range(eta))
+                 - sum(rng.randrange(2) for _ in range(eta))) % q
+                for _ in range(ns)
+            ]
+            errors.append([
+                native_encrypt_poly(self.ctx, k_coeffs, cbd, rng, error_sigma)
+            ])
+            masks.append([
+                native_encrypt_poly(
+                    self.ctx, k_coeffs,
+                    [rng.randrange(2) for _ in range(ns)], rng, error_sigma,
+                )
+                for _ in range(mask_levels * v)
+            ])
+        return RefreshMaterialCts(errors=errors, masks=masks)
+
+    @staticmethod
+    def refresh_preimage_id_slot(round_idx: int, branch: int, wire_idx: int,
+                                 slot: int, crt_idx: int) -> str:
+        return (
+            f"prf_round_{round_idx}_branch_{branch}_wire_{wire_idx}"
+            f"_slot_{slot}_refresh_preimage_crt_{crt_idx}"
+        )
+
+    def refresh_id_slot(self, round_idx: int, wire_idx: int, slot: int) -> bytes:
+        return b"prf_r%d_w%d_s%d" % (round_idx, wire_idx, slot)
+
+    def _refresh_material(self, k_int: int, rng, error_sigma: float
+                          ) -> RefreshMaterialCts:
+        """Material ciphertexts for refreshing ONE wire (replay mode: valid
+        fresh encryptions; the real mode evaluates the CBD PRG circuit —
+        circuit_prg.build_noise_refresh_prg_material — instead)."""
+        params = self.params
+        n_coeffs = 1 if self.cfg.debug_reuse_single_material else params.n
+        mask_levels = 1 if self.cfg.debug_reuse_single_material else params.crt_depth
+        digits = 1 if self.cfg.debug_reuse_single_material else params.modulus_digits
+        v = self.cfg.noise_refresh_v_bits
+        errors, masks = [], []
+        for _ in range(digits):
+            # CBD error values from 2*cbd_n bit differences
+            errs = []
+            for _ in range(n_coeffs):
+                eta = self.cfg.noise_refresh_cbd_n
+                val = sum(rng.randrange(2) for _ in range(eta)) - sum(
+                    rng.randrange(2) for _ in range(eta)
+                )
+                errs.append(native_encrypt(self.ctx, k_int, val, rng, error_sigma))
+            errors.append(errs)
+            masks.append([
+                native_encrypt(self.ctx, k_int, rng.randrange(2), rng, error_sigma)
+                for _ in range(mask_levels * n_coeffs * v)
+            ])
+        return RefreshMaterialCts(errors=errors, masks=masks)
+
+    # ------------------------------------------------------------- offline
+
+    def compute_public_key_path(self, write_matrix, preprocess_out, one_pk,
+                                k_pk, negk_pk, selector_pks, seed_cts,
+                                k_int: int, rng, error_sigma: float,
+                                plt_evaluator):
+        """Per-round pubkey path: evolve seed wires, persist rebase + refresh
+        preimages via `write_matrix(id, matrix)`. Returns (final seed wire
+        pubkeys, debug artifacts)."""
+        params = self.params
+        cfg = self.cfg
+        debug = PrfDebugArtifacts()
+        seed_wires = self._lift_seed_wires(one_pk, seed_cts)
+        td0, b0 = preprocess_out.final_checkpoint(0)
+
+        for round_idx in range(self.input_count):
+            with span("prf_pipeline.pk_round", round_idx=round_idx):
+                selector_pk = selector_pks[round_idx]
+                if cfg.debug_encrypt_random_prg_wires:
+                    round_cts = [
+                        self._sample_debug_prg_cts(
+                            k_int, cfg.seed_bits, rng, error_sigma
+                        )
+                        for _ in range(self.branch_count)
+                    ]
+                    debug.prg_cts.append(round_cts)
+                    prg_wires = [
+                        self._lift_consumed(
+                            one_pk, self._ct_wire_values(branch_cts), self.lift_values
+                        )
+                        for branch_cts in round_cts
+                    ]
+                else:
+                    assert cfg.refresh_wire_limit is None, (
+                        "real PRG mode must refresh every seed wire"
+                    )
+                    # per-BRANCH range circuits, not one full-range circuit:
+                    # the online side evaluates only the selected branch's
+                    # range circuit, and a storage-backed LUT evaluator keys
+                    # its K_high artifacts by (context, gate_id) — the
+                    # offline gate ids must match the online circuit's
+                    prg_wires = []
+                    for b in range(self.branch_count):
+                        chunks = self._eval_prg_round(
+                            round_idx, one_pk, seed_wires, plt_evaluator,
+                            only_branch=b,
+                        )[b]
+                        prg_wires.append([w for chunk in chunks for w in chunk])
+
+                wire_count = len(prg_wires[0])
+                limit = cfg.refresh_wire_limit or wire_count
+                limit = min(limit, wire_count)
+
+                # branch rebase preimages + per-branch SHARED refresh material
+                # (the reference evaluates ONE material circuit per (round,
+                # branch) and shares its decoded terms across every refreshed
+                # wire — naive_vec.rs preprocess_many; round 2 resampled
+                # material per wire, which both deviated and made real mode
+                # computationally unreachable)
+                round_material = []
+                next_seed_wires = None
+                for branch in range(self.branch_count):
+                    branch_sub = selector_pk - one_pk.small_scalar_mul(
+                        params, [branch]
+                    )
+                    # per-wire rebase targets, batched into one preimage pass
+                    commons = []
+                    rebase_targets = []
+                    for wire_idx in range(limit):
+                        prg_wire = prg_wires[branch][wire_idx]
+                        cols = prg_wire.matrix.ncol
+                        mask = self._branch_mask_matrix(
+                            round_idx, branch, wire_idx, cols
+                        )
+                        masked = prg_wire + branch_sub.matrix_mul(params, mask)
+                        common = self._common_rebase_pk(round_idx, wire_idx, cols)
+                        commons.append(common)
+                        rebase_targets.append(
+                            (common - masked.matrix).concat_rows(
+                                [PolyMatrix.zero(params, self.d, cols, device=self.device)]
+                            )
+                        )
+                    rebase_pres = self.trap.preimage_batched_chunked(
+                        params, td0, b0, rebase_targets
+                    )
+                    for wire_idx, pre in enumerate(rebase_pres):
+                        write_matrix(
+                            self.rebase_preimage_id(round_idx, branch, wire_idx), pre
+                        )
+                    # shared refresh terms for this (round, branch)
+                    refresh_ctx = f"refresh.r{round_idx}.b{branch}"
+                    if cfg.debug_encrypt_random_prg_wires:
+                        material = self._refresh_material(k_int, rng, error_sigma)
+                        round_material.append(material)
+                        terms = self.refresher.decoded_terms(
+                            one_pk, negk_pk, material, plt_evaluator,
+                            lambda w: w.matrix, context=refresh_ctx,
+                        )
+                    else:
+                        terms = self.refresher.decoded_terms_prg(
+                            one_pk, negk_pk, seed_wires,
+                            self.material_graph_seed(round_idx, branch),
+                            cfg.noise_refresh_cbd_n, plt_evaluator,
+                            lambda w: w.matrix, context=refresh_ctx,
+                        )
+                    branch_next = []
+                    refresh_targets = []
+                    refresh_ids = []
+                    for wire_idx in range(limit):
+                        a_prime_pk, refresh_keys = self.refresher.preprocess_from_decoded(
+                            self.refresh_id(round_idx, wire_idx),
+                            one_pk,
+                            BggPublicKey(commons[wire_idx], True),
+                            terms,
+                        )
+                        for crt_idx, t in enumerate(refresh_keys):
+                            refresh_targets.append(
+                                t.concat_rows(
+                                    [PolyMatrix.zero(params, self.d, t.ncol,
+                                                     device=self.device)]
+                                )
+                            )
+                            refresh_ids.append(
+                                self.refresh_preimage_id(
+                                    round_idx, branch, wire_idx, crt_idx
+                                )
+                            )
+                        branch_next.append(a_prime_pk)
+                    for mid, pre in zip(
+                        refresh_ids,
+                        self.trap.preimage_batched_chunked(
+                            params, td0, b0, refresh_targets
+                        ),
+                    ):
+                        write_matrix(mid, pre)
+                    if next_seed_wires is None:
+                        next_seed_wires = branch_next
+                    else:
+                        # A' is hash-derived from (round, wire): branch-independent
+                        assert all(
+                            a.matrix == b.matrix
+                            for a, b in zip(next_seed_wires, branch_next)
+                        ), "refresh must not depend on the branch"
+                debug.refresh_material.append(round_material)
+                seed_wires = next_seed_wires
+
+        return seed_wires, debug
+
+    def build_prg_round_circuit(self, round_idx: int,
+                                only_branch: int | None = None,
+                                representative: bool = False) -> PolyCircuit:
+        """The per-round Goldreich-PRG-over-Ring-GSW circuit (reference
+        build_goldreich_prg_range_circuit, utils.rs:747): inputs are
+        seed_bits ciphertexts' wires, outputs the (range of) next-seed
+        ciphertext wires. Exposed so the protocol error simulation can
+        evaluate the SAME circuit over ErrorNorm wires; `representative=True`
+        emits ONE output edge (every edge has the same norm structure — the
+        reference's representative-unit pattern, error_simulation.rs)."""
+        out_bits = self.cfg.seed_bits * self.branch_count
+        circuit = self.ctx.fresh_circuit()
+        # canonical=False: round-N seeds are round-(N-1) outputs / refreshed
+        # wires crossing the circuit boundary in full-reduced form
+        seeds = [
+            RingGswCiphertext.input(self.ctx, circuit, canonical=False)
+            for _ in range(self.cfg.seed_bits)
+        ]
+        if representative:
+            range_start, range_len = 0, 1
+        elif only_branch is None:
+            range_start, range_len = 0, out_bits
+        else:
+            range_start = only_branch * self.cfg.seed_bits
+            range_len = self.cfg.seed_bits
+        prg = GoldreichFhePrg.setup_range(
+            self.cfg.seed_bits, out_bits, range_start, range_len,
+            self.graph_seed_for_round(round_idx),
+        )
+        outs = prg.evaluate(seeds, circuit)
+        flat = []
+        for ct in outs:
+            # circuit-boundary form: the next round / the wrapped circuit
+            # rebuilds these wires under the full-reduced bound assumption
+            flat.extend(ct.reduced(circuit).flatten())
+        circuit.output(flat)
+        return circuit
+
+    def _eval_prg_round(self, round_idx, one_wire, seed_wires, plt_evaluator,
+                        only_branch: int | None = None):
+        """Real mode: Goldreich PRG over Ring-GSW ciphertext wires. Offline
+        evaluates every branch; online passes `only_branch` to evaluate just
+        the selected RANGE of the conceptual round graph (reference
+        build_goldreich_prg_range_circuit, utils.rs:747 / eval-side range)."""
+        from ..lookup.lwe import set_plt_context
+
+        circuit = self.build_prg_round_circuit(round_idx, only_branch)
+        rng_tag = "full" if only_branch is None else f"b{only_branch}"
+        set_plt_context(plt_evaluator, f"prg.r{round_idx}.{rng_tag}")
+        with span("prf_pipeline.prg_round_circuit", gates=circuit.num_gates(),
+                  round_idx=round_idx):
+            results = circuit.eval(
+                self.params, one_wire, seed_wires, plt_evaluator=plt_evaluator,
+                batched=True,
+            )
+        set_plt_context(plt_evaluator, "")
+        per_ct = self.wires_per_ct
+        branch_idxs = (
+            range(self.branch_count) if only_branch is None else [only_branch]
+        )
+        branches = {}
+        for pos, b in enumerate(branch_idxs):
+            start = pos * self.cfg.seed_bits * per_ct
+            branches[b] = [
+                results[start + i * per_ct : start + (i + 1) * per_ct]
+                for i in range(self.cfg.seed_bits)
+            ]
+        if only_branch is not None:
+            return branches
+        return [branches[b] for b in range(self.branch_count)]
+
+    # -------------------------------------------------------------- online
+
+    def compute_seed_encoding_path(self, read_matrix, state0, one_enc, k_enc,
+                                   negk_enc, selector_encs, digits,
+                                   seed_cts, debug: PrfDebugArtifacts,
+                                   plt_evaluator):
+        """Per-round encoding path for the runtime digits; reads the stored
+        rebase + refresh preimages. Returns the final seed wire encodings."""
+        params = self.params
+        cfg = self.cfg
+        seed_wires = self._lift_seed_wires(one_enc, seed_cts)
+
+        for round_idx in range(self.input_count):
+            with span("prf_pipeline.enc_round", round_idx=round_idx):
+                branch = digits[round_idx]
+                assert branch < self.branch_count
+                selector_enc = selector_encs[round_idx]
+                if cfg.debug_encrypt_random_prg_wires:
+                    branch_cts = debug.prg_cts[round_idx][branch]
+                    prg_wires = self._lift_consumed(
+                        one_enc, self._ct_wire_values(branch_cts), self.lift_values
+                    )
+                    wire_chunks = [
+                        prg_wires[i * self.wires_per_ct : (i + 1) * self.wires_per_ct]
+                        for i in range(cfg.seed_bits)
+                    ]
+                else:
+                    wire_chunks = self._eval_prg_round(
+                        round_idx, one_enc, seed_wires, plt_evaluator,
+                        only_branch=branch,
+                    )[branch]
+
+                flat_wires = [w for chunk in wire_chunks for w in chunk]
+                wire_count = len(flat_wires)
+                limit = min(cfg.refresh_wire_limit or wire_count, wire_count)
+                branch_sub = selector_enc - one_enc.small_scalar_mul(
+                    params, [branch]
+                )
+                # shared refresh terms for this round's selected branch
+                refresh_ctx = f"refresh.r{round_idx}.b{branch}"
+                if cfg.debug_encrypt_random_prg_wires:
+                    material = debug.refresh_material[round_idx][branch]
+                    terms = self.refresher.decoded_terms(
+                        one_enc, negk_enc, material, plt_evaluator,
+                        lambda w: w.vector, context=refresh_ctx,
+                    )
+                else:
+                    terms = self.refresher.decoded_terms_prg(
+                        one_enc, negk_enc, seed_wires,
+                        self.material_graph_seed(round_idx, branch),
+                        cfg.noise_refresh_cbd_n, plt_evaluator,
+                        lambda w: w.vector, context=refresh_ctx,
+                    )
+                next_wires = []
+                for wire_idx in range(limit):
+                    prg_wire = flat_wires[wire_idx]
+                    cols = prg_wire.vector.ncol
+                    mask = self._branch_mask_matrix(round_idx, branch, wire_idx, cols)
+                    masked = prg_wire + branch_sub.matrix_mul(params, mask)
+                    common = self._common_rebase_pk(round_idx, wire_idx, cols)
+                    pre = read_matrix(
+                        self.rebase_preimage_id(round_idx, branch, wire_idx)
+                    )
+                    rebased = BggEncoding(
+                        state0 @ pre + masked.vector,
+                        BggPublicKey(common, True),
+                        prg_wire.plaintext,
+                    )
+                    decoders = [
+                        state0 @ read_matrix(
+                            self.refresh_preimage_id(
+                                round_idx, branch, wire_idx, crt_idx
+                            )
+                        )
+                        for crt_idx in range(params.crt_depth)
+                    ]
+                    next_wires.append(
+                        self.refresher.online_eval_from_decoded(
+                            self.refresh_id(round_idx, wire_idx),
+                            one_enc, rebased, terms, decoders,
+                        )
+                    )
+                seed_wires = next_wires
+
+        return seed_wires
+
+    # ----------------------------------------- packed payload: round paths
+
+    def _eval_prg_round_packed(self, round_idx, one_vec, seed_vec_wires,
+                               plt_evaluator):
+        """Packed mode: Goldreich PRG over PACKED Ring-GSW ciphertext vec
+        wires (external products via nested negacyclic convs), all branches."""
+        from ..gadgets.fhe.packed_ring_gsw import PackedRingGswCiphertext
+        from ..lookup.vec_eval import SlotwisePltEvaluator
+        from ..slot_transfer import BGGVecSlotTransferEvaluator
+
+        out_bits = self.cfg.seed_bits * self.branch_count
+        circuit = self.ctx.fresh_circuit()
+        seeds = [
+            PackedRingGswCiphertext.input(
+                self.ctx, circuit, self.num_slots, canonical=False
+            )
+            for _ in range(self.cfg.seed_bits)
+        ]
+        prg = GoldreichFhePrg.setup(
+            self.cfg.seed_bits, out_bits, self.graph_seed_for_round(round_idx)
+        )
+        outs = prg.evaluate(seeds, circuit)
+        flat = []
+        for ct in outs:
+            # circuit-boundary form (see build_prg_round_circuit)
+            flat.extend(ct.reduced(circuit).flatten())
+        circuit.output(flat)
+        from ..lookup.lwe import set_plt_context
+
+        # both sides evaluate the FULL packed round circuit (all branches),
+        # so one shared namespace per round keeps gate ids aligned
+        set_plt_context(plt_evaluator, f"prg_packed.r{round_idx}")
+        results = circuit.eval(
+            self.params, one_vec, seed_vec_wires,
+            plt_evaluator=SlotwisePltEvaluator(plt_evaluator),
+            slot_transfer_evaluator=BGGVecSlotTransferEvaluator(),
+            batched=True,
+        )
+        set_plt_context(plt_evaluator, "")
+        per_ct = self.wires_per_ct
+        branches = []
+        for b in range(self.branch_count):
+            start = b * self.cfg.seed_bits * per_ct
+            branches.append([
+                results[start + i * per_ct : start + (i + 1) * per_ct]
+                for i in range(self.cfg.seed_bits)
+            ])
+        return branches
+
+    def compute_public_key_path_packed(self, write_matrix, preprocess_out,
+                                       one_pk, negk_pk, selector_pks, seed_cts,
+                                       k_coeffs: list[int], rng,
+                                       error_sigma: float, plt_evaluator):
+        """Packed-payload pubkey path: per-round PRG over packed vec wires,
+        per-slot branch-rebase preimages, and the per-round PACKED noise
+        refresh — each slot is rebased onto its common hash pubkey and then
+        refreshed onto a per-slot A' through stored decoder preimages
+        (reference preprocess_many over NaiveBGGPublicKeyVec wires,
+        naive_vec.rs:840; per-slot a_prime keys :1549-1568). Refresh material
+        is ONE packed decode per (round, branch) shared across wires and
+        slots. Returns (final seed vec wires, debug artifacts)."""
+        from ..bgg.vec import BGGPublicKeyVec
+
+        params = self.params
+        cfg = self.cfg
+        ns = self.num_slots
+        debug = PrfDebugArtifacts()
+        seed_wires = self._lift_seed_wires(one_pk, seed_cts, packed=True)
+        td0, b0 = preprocess_out.final_checkpoint(0)
+        one_vec = BGGPublicKeyVec.new([one_pk] * ns)
+        negk_vec = BGGPublicKeyVec.new([negk_pk] * ns)
+
+        for round_idx in range(self.input_count):
+            with span("prf_pipeline.pk_round_packed", round_idx=round_idx):
+                selector_pk = selector_pks[round_idx]
+                if cfg.debug_encrypt_random_prg_wires:
+                    round_cts = [
+                        self._sample_debug_prg_cts_packed(
+                            k_coeffs, cfg.seed_bits, rng, error_sigma
+                        )
+                        for _ in range(self.branch_count)
+                    ]
+                    debug.prg_cts.append(round_cts)
+                    prg_wires = [
+                        self._lift_consumed(
+                            one_pk, self._ct_slot_values(branch_cts),
+                            self.lift_slot_values,
+                        )
+                        for branch_cts in round_cts
+                    ]
+                else:
+                    assert cfg.refresh_wire_limit is None, (
+                        "real PRG mode must rebase every seed wire"
+                    )
+                    prg_wires = [
+                        [w for chunk in branch for w in chunk]
+                        for branch in self._eval_prg_round_packed(
+                            round_idx, one_vec, seed_wires, plt_evaluator,
+                        )
+                    ]
+
+                wire_count = len(prg_wires[0])
+                limit = min(cfg.refresh_wire_limit or wire_count, wire_count)
+
+                round_material = []
+                next_seed_wires = None
+                for branch in range(self.branch_count):
+                    branch_sub = selector_pk - one_pk.small_scalar_mul(
+                        params, [branch]
+                    )
+                    # per-(wire, slot) rebase targets, batched into one pass
+                    commons = {}
+                    rebase_targets = []
+                    rebase_ids = []
+                    for wire_idx in range(limit):
+                        prg_vec = prg_wires[branch][wire_idx]
+                        cols = prg_vec.keys[0].matrix.ncol
+                        mask = self._branch_mask_matrix(
+                            round_idx, branch, wire_idx, cols
+                        )
+                        masked_sub = branch_sub.matrix_mul(params, mask)
+                        for slot in range(ns):
+                            masked = prg_vec.keys[slot] + masked_sub
+                            common = self._common_rebase_pk_slot(
+                                round_idx, wire_idx, slot, cols
+                            )
+                            commons[(wire_idx, slot)] = common
+                            rebase_targets.append(
+                                (common - masked.matrix).concat_rows(
+                                    [PolyMatrix.zero(params, self.d, cols,
+                                                     device=self.device)]
+                                )
+                            )
+                            rebase_ids.append(
+                                self.rebase_preimage_id_slot(
+                                    round_idx, branch, wire_idx, slot
+                                )
+                            )
+                    for mid, pre in zip(
+                        rebase_ids,
+                        self.trap.preimage_batched_chunked(
+                            params, td0, b0, rebase_targets
+                        ),
+                    ):
+                        write_matrix(mid, pre)
+
+                    # shared PACKED refresh terms for this (round, branch)
+                    material = self._refresh_material_packed(
+                        k_coeffs, rng, error_sigma
+                    )
+                    round_material.append(material)
+                    terms = self.refresher.decoded_terms_packed(
+                        one_vec, negk_vec, material, plt_evaluator,
+                        lambda w: w.keys[0].matrix, ns,
+                        context=f"refresh.r{round_idx}.b{branch}",
+                    )
+                    branch_next = []
+                    refresh_targets = []
+                    refresh_ids = []
+                    for wire_idx in range(limit):
+                        slot_keys = []
+                        for slot in range(ns):
+                            a_prime_pk, refresh_keys = (
+                                self.refresher.preprocess_from_decoded(
+                                    self.refresh_id_slot(round_idx, wire_idx, slot),
+                                    one_pk,
+                                    BggPublicKey(commons[(wire_idx, slot)], True),
+                                    terms,
+                                )
+                            )
+                            for crt_idx, t in enumerate(refresh_keys):
+                                refresh_targets.append(
+                                    t.concat_rows(
+                                        [PolyMatrix.zero(params, self.d, t.ncol,
+                                                         device=self.device)]
+                                    )
+                                )
+                                refresh_ids.append(
+                                    self.refresh_preimage_id_slot(
+                                        round_idx, branch, wire_idx, slot, crt_idx
+                                    )
+                                )
+                            slot_keys.append(a_prime_pk)
+                        branch_next.append(BGGPublicKeyVec.new(slot_keys))
+                    for mid, pre in zip(
+                        refresh_ids,
+                        self.trap.preimage_batched_chunked(
+                            params, td0, b0, refresh_targets
+                        ),
+                    ):
+                        write_matrix(mid, pre)
+                    if next_seed_wires is None:
+                        next_seed_wires = branch_next
+                debug.refresh_material.append(round_material)
+                seed_wires = next_seed_wires
+
+        return seed_wires, debug
+
+    def compute_seed_encoding_path_packed(self, read_matrix, state0, one_enc,
+                                          negk_enc, selector_encs, digits,
+                                          seed_cts, debug: PrfDebugArtifacts,
+                                          plt_evaluator):
+        """Packed-payload encoding path for the runtime digits: reads the
+        per-slot rebase preimages, then noise-refreshes every slot through
+        the stored per-(slot, crt) decoder preimages (reference
+        online_eval_many, naive_vec.rs:1077). Returns the final seed vec
+        encodings."""
+        from ..bgg.vec import BGGEncodingVec
+
+        params = self.params
+        cfg = self.cfg
+        ns = self.num_slots
+        seed_wires = self._lift_seed_wires(one_enc, seed_cts, packed=True)
+        one_vec = BGGEncodingVec.new([one_enc] * ns)
+        negk_vec = BGGEncodingVec.new([negk_enc] * ns)
+
+        for round_idx in range(self.input_count):
+            with span("prf_pipeline.enc_round_packed", round_idx=round_idx):
+                branch = digits[round_idx]
+                assert branch < self.branch_count
+                selector_enc = selector_encs[round_idx]
+                if cfg.debug_encrypt_random_prg_wires:
+                    branch_cts = debug.prg_cts[round_idx][branch]
+                    wire_vecs = self._lift_consumed(
+                        one_enc, self._ct_slot_values(branch_cts), self.lift_slot_values
+                    )
+                else:
+                    all_branches = self._eval_prg_round_packed(
+                        round_idx, one_vec, seed_wires, plt_evaluator,
+                    )
+                    wire_vecs = [w for chunk in all_branches[branch] for w in chunk]
+
+                wire_count = len(wire_vecs)
+                limit = min(cfg.refresh_wire_limit or wire_count, wire_count)
+                branch_sub = selector_enc - one_enc.small_scalar_mul(
+                    params, [branch]
+                )
+                # shared PACKED refresh terms for the selected branch
+                material = debug.refresh_material[round_idx][branch]
+                terms = self.refresher.decoded_terms_packed(
+                    one_vec, negk_vec, material, plt_evaluator,
+                    lambda w: w.encodings[0].vector, ns,
+                    context=f"refresh.r{round_idx}.b{branch}",
+                )
+                next_wires = []
+                for wire_idx in range(limit):
+                    prg_vec = wire_vecs[wire_idx]
+                    cols = prg_vec.encodings[0].vector.ncol
+                    mask = self._branch_mask_matrix(round_idx, branch, wire_idx, cols)
+                    masked_sub = branch_sub.matrix_mul(params, mask)
+                    slot_encs = []
+                    for slot in range(ns):
+                        masked = prg_vec.encodings[slot] + masked_sub
+                        common = self._common_rebase_pk_slot(
+                            round_idx, wire_idx, slot, cols
+                        )
+                        pre = read_matrix(
+                            self.rebase_preimage_id_slot(
+                                round_idx, branch, wire_idx, slot
+                            )
+                        )
+                        rebased = BggEncoding(
+                            state0 @ pre + masked.vector,
+                            BggPublicKey(common, True),
+                            prg_vec.encodings[slot].plaintext,
+                        )
+                        decoders = [
+                            state0 @ read_matrix(
+                                self.refresh_preimage_id_slot(
+                                    round_idx, branch, wire_idx, slot, crt_idx
+                                )
+                            )
+                            for crt_idx in range(params.crt_depth)
+                        ]
+                        slot_encs.append(
+                            self.refresher.online_eval_from_decoded(
+                                self.refresh_id_slot(round_idx, wire_idx, slot),
+                                one_enc, rebased, terms, decoders,
+                            )
+                        )
+                    next_wires.append(BGGEncodingVec.new(slot_encs))
+                seed_wires = next_wires
+
+        return seed_wires

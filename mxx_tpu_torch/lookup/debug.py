@@ -80,14 +80,16 @@ class DebugBGGPubKeyPltEvaluator:
                                   device=input_pk.matrix.data.device)
         return BggPublicKey(a_lt, True)
 
-    def public_lookup_batch(self, params, items) -> list[BggPublicKey]:
-        """items = [(plt, input_pk, gate_id, lut_id)]; equal to per-gate
-        `public_lookup` (same A_LT streams)."""
+    def public_lookup_batch(self, params, items, slot_idxs=None) -> list[BggPublicKey]:
+        """items = [(plt, input_pk, gate_id, lut_id)], `slot_idxs` one slot
+        per item or None; equal to per-gate `public_lookup` (same A_LT
+        streams)."""
         d = items[0][1].matrix.nrow
         if any(it[1].matrix.nrow != d for it in items):
             raise ValueError("a LUT batch takes input pubkeys with one row count")
         a_lts = derive_a_lt_matrices_batch(params, d, self.hash_key, [it[2] for it in items],
-                                           device=items[0][1].matrix.data.device)
+                                           device=items[0][1].matrix.data.device,
+                                           slot_idxs=slot_idxs)
         return [BggPublicKey(a, True) for a in a_lts]
 
     def sample_aux_matrices(self, params):
@@ -133,11 +135,12 @@ class DebugBGGEncodingPltEvaluator:
         vector = self.secret_vec @ (a_lt - gadget.mul_poly_scalar(y_poly))
         return BggEncoding(vector, BggPublicKey(a_lt, True), y_poly)
 
-    def public_lookup_batch(self, params, items) -> list[BggEncoding]:
-        """items = [(plt, input_enc, gate_id, lut_id)]: one read of the
-        inputs' constants, one A_LT batch, one batched G*y subtraction and
-        secret-row product; equal to per-gate `public_lookup`. The outputs
-        are views of the batch's result on the device."""
+    def public_lookup_batch(self, params, items, slot_idxs=None) -> list[BggEncoding]:
+        """items = [(plt, input_enc, gate_id, lut_id)], `slot_idxs` one slot
+        per item or None: one read of the inputs' constants, one A_LT batch,
+        one batched G*y subtraction and secret-row product; equal to per-gate
+        `public_lookup`. The outputs are views of the batch's result on the
+        device."""
         device = self.secret_vec.data.device
         d = items[0][1].pubkey.matrix.nrow
         zs = _batched_const_values(params, [it[1].plaintext for it in items])
@@ -153,7 +156,7 @@ class DebugBGGEncodingPltEvaluator:
         ys = [Poly(y_res[:, i : i + 1].expand(L, params.n).contiguous(), EVAL, params)
               for i in range(B)]
         a_lts = derive_a_lt_matrices_batch(params, d, self.hash_key, [it[2] for it in items],
-                                           device=device)
+                                           device=device, slot_idxs=slot_idxs)
         a_data = torch.cat([a.data for a in a_lts], dim=1)  # [L, B*d, m, n]
         vec = _lut_enc_vectors(
             a_data, y_res, self.secret_vec.to_eval().data,

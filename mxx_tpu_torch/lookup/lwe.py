@@ -60,20 +60,22 @@ _A_LT_CACHE_LIMIT = 1 << 28  # 256 MB of device tensors; FIFO-evicted
 
 def derive_a_lt_matrices_batch(params, row_size: int, hash_key: bytes, gate_ids: list[int],
                                slot_idx=None, context: str = "",
-                               device="cuda") -> list[PolyMatrix]:
+                               device="cuda", slot_idxs: list | None = None) -> list[PolyMatrix]:
     """Many gates' A_LT (EVAL form) in one batch of hash lanes and one
     transform, equal per gate to `derive_a_lt_matrix` (same tags and
-    streams). Results are kept in a bounded FIFO cache, since a protocol
-    derives the same hash-determined A_LT once per pass; nothing writes into
-    a cached tensor."""
+    streams); `slot_idxs` gives each gate its own slot (vec wires). Results
+    are kept in a bounded FIFO cache, since a protocol derives the same
+    hash-determined A_LT once per pass; nothing writes into a cached
+    tensor."""
     device = torch.device(device)
+    slots = [s or 0 for s in slot_idxs] if slot_idxs is not None else [slot_idx or 0] * len(gate_ids)
     ck = (params.n, params.crt_depth, params.crt_bits, params.base_bits, row_size, hash_key,
-          slot_idx or 0, context, tuple(gate_ids), str(device))
+          tuple(slots), context, tuple(gate_ids), str(device))
     hit = _A_LT_CACHE.get(ck)
     if hit is not None:
         return list(hit[0])
     m_g = row_size * params.modulus_digits
-    tags = [f"A_LT_{_ctx_tag(context)}{g}_slot{slot_idx or 0}" for g in gate_ids]
+    tags = [f"A_LT_{_ctx_tag(context)}{g}_slot{s}" for g, s in zip(gate_ids, slots)]
     out = HashSampler(device).sample_hash_batch(params, hash_key, tags, row_size, m_g,
                                                 FinRingDist(), eval_form=True)
     nbytes = sum(m.data.numel() * m.data.element_size() for m in out)

@@ -2,10 +2,10 @@
 
 The port's counterpart of `mxx_tpu/matrix/poly_matrix.py`: block algebra,
 gadget matrix, G^{-1} decomposition, concat/slice/transpose, the Kronecker
-product, the exact eval-domain matmul and the compact bytes of the JAX
-package (uint32 residues after a 25-byte header). Out-of-core matrices are
-in `offload.py`. Modulus switching, the packed bytes and the tensor-identity
-products are not ported yet.
+product, the exact eval-domain matmul, modulus switching and the compact
+bytes of the JAX package (uint32 residues after a 25-byte header).
+Out-of-core matrices are in `offload.py`. The packed bytes and the
+tensor-identity products are not ported yet.
 """
 
 from __future__ import annotations
@@ -274,6 +274,49 @@ class PolyMatrix:
         if self.ncol != other.nrow * k:
             raise ValueError(f"shape mismatch {self.shape} @ G^-1 of {other.shape}, k={k}")
         return self @ other.decompose()
+
+    def modulus_switch(self, new_modulus: int) -> "PolyMatrix":
+        """Round-scale every coefficient from q to new_modulus: round(x P / q)
+        mod P, re-embedded per limb (COEFF form).
+
+        For P < 2^32 the CRT scale-and-round of the JAX package
+        (`_modulus_switch_u32`) in int64 on the matrix's device: with
+        e_t P / q = I_t + f_t, the integer parts r_t (I_t mod P) (each below
+        2^63, since r_t < 2^31 and I_t mod P < 2^32) accumulate exactly mod P,
+        and the fractions r_t f_t accumulate in float64 limb by limb in the
+        JAX package's order, with the same `>= 0.5` rule. A coefficient whose
+        true fraction lies within ~2^-20 of 1/2 may round the other way than
+        the exact integer rounding; both packages round it alike. Larger
+        targets take the exact host big-int path."""
+        p = self.params
+        q = p.modulus
+        coeff = self.to_coeff().data
+        if new_modulus < (1 << 32):
+            device = coeff.device
+            ints_np, fracs_np = p.ms_tables(new_modulus)
+            ints = torch.from_numpy(ints_np).to(device)
+            P = torch.tensor(new_modulus, dtype=torch.int64, device=device)
+            hi = torch.zeros(coeff.shape[1:], dtype=torch.int64, device=device)
+            fr = torch.zeros(coeff.shape[1:], dtype=torch.float64, device=device)
+            for t in range(p.crt_depth):
+                r = coeff[t]
+                hi = (hi + (r * ints[t]) % P) % P
+                fr = fr + r.to(torch.float64) * float(fracs_np[t])
+            fr_floor = torch.floor(fr)
+            carry = (fr_floor.to(torch.int64) + (fr - fr_floor >= 0.5).to(torch.int64)) % P
+            v = (hi + carry) % P
+            moduli = p.tables(device).moduli.reshape(-1, 1, 1, 1)
+            return PolyMatrix(v[None] % moduli, COEFF, p)
+        arr = coeff.cpu().numpy()
+        rows = []
+        for i in range(self.nrow):
+            row = []
+            for j in range(self.ncol):
+                coeffs = [p.reconstruct_coeff(arr[:, i, j, t]) for t in range(p.n)]
+                switched = [(c * new_modulus + q // 2) // q % new_modulus for c in coeffs]
+                row.append(Poly.from_int_coeffs(p, switched, coeff.device))
+            rows.append(row)
+        return PolyMatrix.from_polys(p, rows)
 
     # ---------------------------------------------------------------- serde
 

@@ -300,6 +300,26 @@ class RingParams:
 
         return self._table("np_sign_corr_pows", build)
 
+    # ------------------------------------------- modulus-switch tables (per P)
+
+    def ms_tables(self, new_modulus: int) -> tuple[np.ndarray, np.ndarray]:
+        """(floor(e_t P / q) mod P, frac(e_t P / q)) per limb as int64[L] and
+        float64[L]: the tables of `PolyMatrix.modulus_switch` (the JAX
+        package's `ms_int_parts` / `ms_frac_parts`)."""
+
+        def build():
+            q = self.modulus
+            ints = []
+            fracs = []
+            for e in self.crt_idempotents:
+                num = e * new_modulus
+                ints.append((num // q) % new_modulus)
+                # exact rational remainder -> float64 fraction
+                fracs.append(float((num % q) / q))
+            return np.array(ints, dtype=np.int64), np.array(fracs, dtype=np.float64)
+
+        return self._table(("ms", new_modulus), build)
+
     # -------------------------------------------------------- device tables
 
     def tables(self, device) -> TorchTables:
