@@ -105,13 +105,27 @@ no package beside it, a kernel that does not build, launch or agree):
    eval of [0, 1] and [1, 1]; checked: both decode to [a ^ b, a & b],
    c_one == sigma (A_one - G) exactly, K1/K2 launched in each of phases
    13 and 15;
-16. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+16. the bench estimators: per-op costs measured on the card (each a
+   warm-up, then the median wall time of a few runs between synchronizes) at
+   n=2^13, L=8 (poly, BGG+ encoding d=1 and d=2, packed 4 slots, naive vec 4
+   slots, each encoding model with its LWE online lookup as the PubLut
+   cost; preimages d=1, d=2 and the FE's 1-column d=2, one masked decode)
+   and at the Diamond iO ring (preimage d=2, naive vec 4 slots); the
+   estimates of phases 8, 9, 12 and 15 beside the times
+   those phases measured above, with their ratio; the estimated injector and
+   decoder preimage counts beside the preimages the runs made (checked
+   equal), the estimated artifact bytes beside the bytes written; the AKY24
+   iO estimate (tests/test_aky24_io.py's circuit and IO_KW) and its CRT-depth
+   search at n=2^13, crt_bits 28, base_bits 14 (checked: a depth is found
+   and simulates ok); every cost checked finite and positive, K1/K2
+   launched;
+17. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, each kernel against its plain version at the largest transform of
    the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
    profiled batched encoding pass, its device time split by stage;
-17. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+18. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
    path's count beside it in `launches_by_path`; each kernel's least time
    `bound_ms`, the larger of its device-memory time and its integer floor,
    and its share `pct_of_bound`; `library_ms` null, since no PyTorch call
@@ -739,12 +753,14 @@ def instrument(obj, name: str, log: dict, label: str, size=None) -> None:
     setattr(obj, name, wrapped)
 
 
-def we_encryption(p, dev, msg: bool, check_states: bool, timing) -> bool:
+def we_encryption(p, dev, msg: bool, check_states: bool, timing) -> tuple[bool, dict]:
     """One Diamond WE encryption of `msg` through `enc` and `dec` with the
     witness [False, True], in its own temporary directory (deleted when its
     checks are done); with `check_states`, every final injector state is
     held to its simulated error bound. Prints its checks and times and
-    returns whether they held."""
+    returns whether they held, with what the estimators phase compares
+    (`enc` and `dec` ms, the transition preimages made, the injector and the
+    circuit)."""
     import shutil
     import tempfile
 
@@ -774,9 +790,10 @@ def we_encryption(p, dev, msg: bool, check_states: bool, timing) -> bool:
         we = DiamondWE(injector, 2, tmp, b"diamond_we_chip", seed=4091 + msg)
         instrument(injector._trap, "trapdoor", log, "trapdoor")
         peaks = []  # peak device memory after each transition preimage call
+        targets = []  # transition preimages (targets) per call
         instrument(injector._trap, "preimage_batched_chunked", log, "transition preimages",
                    lambda a, out: peaks.append(torch.cuda.max_memory_allocated())
-                   or sum(t.ncol for t in a[3]))
+                   or targets.append(len(a[3])) or sum(t.ncol for t in a[3]))
         instrument(injector, "_write_matrix", log, "write",
                    lambda a, out: injector._mpath(a[0], a[1]).stat().st_size)
         instrument(injector, "read_matrix", log, "read",
@@ -853,13 +870,15 @@ def we_encryption(p, dev, msg: bool, check_states: bool, timing) -> bool:
     timing(f"{tag}: encoding circuit eval", enc_eval_ms, "ms")
     timing(f"{tag}: dec after online_eval (projections, circuit eval, decode)",
            dec_ms - on_ms, "ms")
-    return ok
+    return ok, {"enc_ms": enc_ms, "dec_ms": dec_ms, "transition_preimages": sum(targets),
+                "injector": injector, "circuit": circuit}
 
 
 def drive_diamond_we(p, dev, timing) -> dict:
     """Diamond WE: one encryption of each message, each with a fresh
     injector, the first one's final states held to their bounds. Returns
-    the K1/K2 launch counts of the phase."""
+    the K1/K2 launch counts of the phase ("launches") and each encryption's
+    measurements ("runs")."""
     import torch
 
     from mxx_tpu_torch.ops import four_step
@@ -869,7 +888,7 @@ def drive_diamond_we(p, dev, timing) -> dict:
     timing("diamond we: device memory allocated at the start",
            torch.cuda.memory_allocated() / 1e9, "GB")
     four_step.launches.update(fwd=0, inv=0)
-    ok = [we_encryption(p, dev, msg, not msg, timing) for msg in (False, True)]
+    ok, runs = zip(*(we_encryption(p, dev, msg, not msg, timing) for msg in (False, True)))
     torch.cuda.synchronize()
     counts = dict(four_step.launches)
     timing("diamond we: peak device memory", torch.cuda.max_memory_allocated() / 1e9, "GB")
@@ -880,13 +899,13 @@ def drive_diamond_we(p, dev, timing) -> dict:
     if counts["fwd"] == 0 or counts["inv"] == 0:
         raise SystemExit("chip_smoke: the Diamond WE phase did not go through both four-step "
                          "kernels")
-    return counts
+    return {"launches": counts, "runs": runs}
 
 
 def drive_aky24_fe(p, dev, timing) -> dict:
     """AKY24 FE through setup, keygen, enc and dec of four messages, checked
     against f(x) and the exact K_f relation. Returns the K1/K2 launch counts
-    of the phase."""
+    of the phase ("launches"), the median ms of each call and the circuit."""
     import torch
 
     from mxx_tpu_torch.circuit import PolyCircuit
@@ -943,7 +962,8 @@ def drive_aky24_fe(p, dev, timing) -> dict:
     if counts["fwd"] == 0 or counts["inv"] == 0:
         raise SystemExit("chip_smoke: the AKY24 FE phase did not go through both four-step "
                          "kernels")
-    return counts
+    return {"launches": counts, "ms": {k: statistics.median(v) for k, v in ms.items()},
+            "circuit": c}
 
 
 def timed(fn):
@@ -1222,7 +1242,8 @@ def drive_noise_refresh(p, dev, state, timing) -> dict:
 
 def drive_masked_decode(p, dev, state, timing) -> dict:
     """The masked high-bit decoder: four stored preimages, four bits decoded.
-    Returns the K1/K2 launch counts."""
+    Returns the K1/K2 launch counts ("launches") and the ms of `online_decode`
+    with its output count."""
     import random
     import tempfile
     from types import SimpleNamespace
@@ -1308,7 +1329,7 @@ def drive_masked_decode(p, dev, state, timing) -> dict:
     if not all((ok_pre, ok_stored, got == bits, ok_rest, gone)):
         raise SystemExit("chip_smoke: masked decoder check failed")
     require_launches("masked decode", counts)
-    return counts
+    return {"launches": counts, "decode_ms": ms_decode, "outputs": len(bits)}
 
 
 ST_KEY = bytes([5] * 32)
@@ -1497,7 +1518,9 @@ def drive_diamond_io(p, dev, timing, slots: int = DIO_SLOTS) -> dict:
     `test_diamond_io_packed_payload_e2e` shape): obfuscate XOR/AND of two
     bits into a temporary directory, evaluate [0, 1] and [1, 1], check the
     decodes and c_one == sigma (A_one - G). Returns the K1/K2 launch counts
-    of the phase."""
+    of the phase ("launches") and what the estimators phase compares: the
+    obfuscate and eval ms, the transition and decoder preimages made, the
+    artifact bytes and the `DiamondIO`."""
     import shutil
     import tempfile
 
@@ -1525,7 +1548,10 @@ def drive_diamond_io(p, dev, timing, slots: int = DIO_SLOTS) -> dict:
     instrument(dio._trap, "preimage", parts, "trapdoor preimages (rebase, refresh, final, "
                "decoder)")
     instrument(dio, "_sample_final_output_preimage", parts, "of them final output preimages")
-    instrument(dio, "_write", parts, "artifact writes")
+    instrument(dio.injector._trap, "preimage_batched_chunked", parts,
+               "injector transition preimages", lambda a, out: len(a[3]))
+    instrument(dio, "_write", parts, "artifact writes",
+               lambda a, out: str(a[1]).startswith("decoder_preimage_"))
     tmp = Path(tempfile.mkdtemp(prefix="mxx_diamond_io_"))
     try:
         torch.cuda.synchronize()
@@ -1621,7 +1647,156 @@ def drive_diamond_io(p, dev, timing, slots: int = DIO_SLOTS) -> dict:
     if not (ok_dec and ok_one):
         raise SystemExit("chip_smoke: Diamond iO check failed")
     require_launches("diamond io", counts)
-    return counts
+    return {"launches": counts, "obfuscate_ms": ms_obf, "eval_ms": [r[2] for r in results],
+            "transition_preimages": sum(x[1] for x in parts["injector transition preimages"]),
+            "decoder_preimages": sum(x[1] for x in parts["artifact writes"]),
+            "artifact_bytes": nbytes, "dio": dio}
+
+
+AKY24_IO_KW = dict(  # tests/test_aky24_io.py `IO_KW`
+    bgg_tag=b"aky24", input_size=2, output_size=1, seed_bits=32, prf_batch_bits=1,
+    prf_mask_output_coeff_bits=4, noise_refresh_v_bits=8, noise_refresh_cbd_n=4)
+
+
+def aky24_lut_circuit(p):
+    """tests/test_aky24_io.py `make_circuit`: Mul -> PubLut (x mod 3)."""
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.lookup import PublicLut
+
+    c = PolyCircuit()
+    w = c.input(2)
+    lid = c.register_public_lut(PublicLut.from_dict(p, {x: (x, x % 3) for x in range(9)}))
+    c.output([c.public_lookup_gate(c.mul_gate(w[0], w[1]), lid)])
+    return c
+
+
+def drive_estimators(p, pd, dev, timing, we, fe, decode, dio) -> dict:
+    """The bench estimators on the card: per-op costs measured at the ring
+    `p` of phases 8-12 and at the ring `pd` of Diamond iO; the estimates they
+    give for the WE, FE, masked-decode and Diamond iO phases beside the times
+    those phases measured in this run; the estimated preimage counts beside
+    the preimages the runs made; the AKY24 iO estimate and its CRT-depth
+    search at the ring dimension of `p`. Returns the K1/K2 launch counts of
+    the phase."""
+    import torch
+
+    from mxx_tpu_torch.bench_estimator import (
+        measure_bgg_encoding_costs,
+        measure_bgg_poly_encoding_costs,
+        measure_naive_vec_costs,
+        measure_poly_costs,
+    )
+    from mxx_tpu_torch.decoder.bench import estimate_decoder_scaling, measure_masked_decode_cost
+    from mxx_tpu_torch.func_enc.bench import estimate_aky24_dec, estimate_aky24_keygen
+    from mxx_tpu_torch.io_protocols import Aky24IO, aky24_io_find_crt_depth, simulate_aky24_io
+    from mxx_tpu_torch.io_protocols.aky24_io import estimate_aky24_io
+    from mxx_tpu_torch.io_protocols.bench_estimator import (
+        estimate_diamond_io,
+        measure_preimage_cost,
+    )
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.we.bench_estimator import estimate_diamond_we
+
+    bad_costs, counts_equal = [], []
+
+    def cost(label, seconds):
+        if not (math.isfinite(seconds) and seconds > 0):
+            bad_costs.append(label)
+        timing(f"estimators: cost {label}", seconds * 1e3, "ms")
+        return seconds
+
+    def model(label, m):
+        for kind, seconds in m.costs.items():
+            cost(f"{label} {kind}", seconds)
+        return m
+
+    def compare(label, estimate_s, measured_ms):
+        timing(f"estimators: {label}: estimate", estimate_s * 1e3, "ms",
+               f"; measured in this run {measured_ms:.1f} ms; estimate / measured "
+               f"{estimate_s * 1e3 / measured_ms:.4f}")
+
+    def count(label, estimated, made):
+        counts_equal.append(estimated == made)
+        print(f"estimators: {label} {estimated}; made in this run {made}; equal "
+              f"{estimated == made}", flush=True)
+
+    torch.cuda.synchronize()
+    four_step.launches.update(fwd=0, inv=0)
+    k = p.modulus_digits
+    tag = f"n={p.n} L={p.crt_depth}"
+    model(f"{tag} poly", measure_poly_costs(p, device=dev))
+    bgg = model(f"{tag} bgg encoding d=1", measure_bgg_encoding_costs(p, 1, device=dev))
+    bgg2 = model(f"{tag} bgg encoding d=2", measure_bgg_encoding_costs(p, 2, device=dev))
+    model(f"{tag} bgg poly encoding 4 slots", measure_bgg_poly_encoding_costs(p, 4, device=dev))
+    model(f"{tag} naive vec 4 slots", measure_naive_vec_costs(p, 4, device=dev))
+    pre1 = cost(f"{tag} preimage d=1 ({k + 2} cols)", measure_preimage_cost(p, d=1, device=dev))
+    pre2 = cost(f"{tag} preimage d=2 ({2 * (k + 2)} cols)",
+                measure_preimage_cost(p, d=2, device=dev))
+    pre_fe = cost(f"{tag} preimage d=2 (1 col, the FE keygen's)",
+                  measure_preimage_cost(p, d=2, cols=1, device=dev))
+    dec_cost = cost(f"{tag} masked decode secret_size 1",
+                    measure_masked_decode_cost(p, 1, device=dev))
+
+    for i, run in enumerate(we["runs"]):
+        est = estimate_diamond_we(run["injector"], run["circuit"], 1, 1, pre2, bgg)
+        compare(f"diamond we encryption {i}: enc", est.enc_latency_secs, run["enc_ms"])
+        compare(f"diamond we encryption {i}: dec", est.dec_latency_secs, run["dec_ms"])
+        count(f"diamond we encryption {i}: injector_preimage_count", est.injector_preimage_count,
+              run["transition_preimages"])
+    kg = estimate_aky24_keygen(p, fe["circuit"], 1, pre_fe, bgg2, secret_size=2)
+    fd = estimate_aky24_dec(p, fe["circuit"], 1, bgg2)
+    compare("aky24 fe keygen", kg.total_secs, fe["ms"]["keygen"])
+    compare("aky24 fe dec (median of four)", fd.total_secs, fe["ms"]["dec"])
+    ds = estimate_decoder_scaling(p, [decode["outputs"]], per_output_cost=dec_cost)
+    compare(f"masked decode, online_decode of {decode['outputs']} outputs", ds.latency_secs[0],
+            decode["decode_ms"])
+    aio = estimate_aky24_io(Aky24IO(params=p, **AKY24_IO_KW), aky24_lut_circuit(p), 1, pre1, bgg)
+    timing("estimators: aky24 io (tests/test_aky24_io.py circuit and IO_KW): obfuscate estimate",
+           aio.obfuscate_latency_secs, "s", f"; eval estimate {aio.eval_latency_secs * 1e3:.3f} ms;"
+           f" {aio.prf_preimage_count} PRF preimages (no run to compare)")
+
+    kd = pd.modulus_digits
+    dtag = f"n={pd.n} L={pd.crt_depth}"
+    pre_dio = cost(f"{dtag} preimage d=2 ({2 * (kd + 2)} cols)",
+                   measure_preimage_cost(pd, d=2, device=dev))
+    naive_dio = model(f"{dtag} naive vec {DIO_SLOTS} slots",
+                      measure_naive_vec_costs(pd, DIO_SLOTS, device=dev))
+    est = estimate_diamond_io(dio["dio"], xor_and_builder, 1, pre_dio, naive_dio)
+    compare("diamond io obfuscate", est.obfuscate_latency_secs, dio["obfuscate_ms"])
+    for bits, ms in zip(([0, 1], [1, 1]), dio["eval_ms"]):
+        compare(f"diamond io eval {bits}", est.eval_latency_secs, ms)
+    count("diamond io injector_preimage_count", est.injector_preimage_count,
+          dio["transition_preimages"])
+    count("diamond io decoder_preimage_count", est.decoder_preimage_count,
+          dio["decoder_preimages"])
+    print(f"estimators: diamond io artifact_bytes {est.artifact_bytes}; written in this run "
+          f"{dio['artifact_bytes']}; estimate / written "
+          f"{est.artifact_bytes / dio['artifact_bytes']:.4f}", flush=True)
+    torch.cuda.synchronize()
+    launches = dict(four_step.launches)
+
+    found = aky24_io_find_crt_depth(aky24_lut_circuit, p.n, p.crt_bits, p.base_bits, 8,
+                                    AKY24_IO_KW)
+    ok_depth = False
+    if found is not None:
+        depth, fp = found
+        sim = simulate_aky24_io(Aky24IO(params=fp, **AKY24_IO_KW), aky24_lut_circuit(fp))
+        ok_depth = sim.ok
+        print(f"estimators: aky24_io_find_crt_depth n={p.n} crt_bits {p.crt_bits} base_bits "
+              f"{p.base_bits}, up to depth 8: depth "
+              f"{depth} (q of {fp.modulus.bit_length()} bits), circuit error "
+              f"{sim.circuit_error_bits} bits, decode margin {sim.decode_margin_bits} bits, ok "
+              f"{sim.ok}", flush=True)
+    print(f"estimators: launches in the phase: fwd {launches['fwd']}, inv {launches['inv']}",
+          flush=True)
+    if bad_costs:
+        raise SystemExit(f"chip_smoke: costs not finite and positive: {bad_costs}")
+    if not all(counts_equal):
+        raise SystemExit("chip_smoke: an estimated preimage count differs from the run's")
+    if not ok_depth:
+        raise SystemExit("chip_smoke: the AKY24 iO depth search found no depth that checks ok")
+    require_launches("estimators", launches)
+    return launches
 
 
 def main() -> None:
@@ -1693,11 +1868,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 8. Diamond witness encryption at the same ring
-    we_counts = drive_diamond_we(RingParams.new(8192, 8, 28, 14), dev, timing)
+    we = drive_diamond_we(RingParams.new(8192, 8, 28, 14), dev, timing)
     torch.cuda.empty_cache()
 
     # 9. AKY24 functional encryption at the same ring
-    fe_counts = drive_aky24_fe(RingParams.new(8192, 8, 28, 14), dev, timing)
+    fe = drive_aky24_fe(RingParams.new(8192, 8, 28, 14), dev, timing)
     torch.cuda.empty_cache()
 
     # 10. one nested-RNS multiplication over lifted BGG+ wires
@@ -1709,7 +1884,7 @@ def main() -> None:
     state = trapdoor_state(p, dev)
     refresh_counts = drive_noise_refresh(p, dev, state, timing)
     torch.cuda.empty_cache()
-    decode_counts = drive_masked_decode(p, dev, state, timing)
+    decode = drive_masked_decode(p, dev, state, timing)
     del state
     torch.cuda.empty_cache()
 
@@ -1721,10 +1896,18 @@ def main() -> None:
     drive_modulus_switch(p, dev, timing)
 
     # 15. Diamond iO, packed payload, debug replay, at a ring cut to fit the card
-    dio_counts = drive_diamond_io(RingParams.new(*DIO_RING), dev, timing)
+    dio = drive_diamond_io(RingParams.new(*DIO_RING), dev, timing)
     torch.cuda.empty_cache()
 
-    # 16. timings
+    # 16. the estimators: per-op costs on the card, estimates beside the
+    # times of phases 8, 9, 12 and 15, and the AKY24 iO depth search
+    est_counts = drive_estimators(p, RingParams.new(*DIO_RING), dev, timing, we, fe, decode, dio)
+    we_counts, fe_counts, decode_counts, dio_counts = (
+        x["launches"] for x in (we, fe, decode, dio))
+    del we, fe, decode, dio
+    torch.cuda.empty_cache()
+
+    # 17. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -1787,7 +1970,8 @@ def main() -> None:
                    "lwe lut chain": lut_counts[d], "diamond we": we_counts[d],
                    "aky24 fe": fe_counts[d], "nested rns mul": nested_counts[d],
                    "noise refresh": refresh_counts[d], "masked decode": decode_counts[d],
-                   "slot transfer": st_counts[d], "diamond io": dio_counts[d]}
+                   "slot transfer": st_counts[d], "diamond io": dio_counts[d],
+                   "estimators": est_counts[d]}
                for d in ("fwd", "inv")}
     cases = [
         ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",

@@ -6,8 +6,8 @@ src/io/diamond_io.rs, SURVEY.md §3.4-3.5), with the same artifact names
 Everything runs on the `device` of the `DiamondIO`; the wrapped circuit over
 vec wires goes through the level-batched evaluator (the JAX package
 evaluates it gate by gate; the results are the same bits).
-`diamond_io_find_crt_depth` needs `protocol_simulation`, which is not ported
-yet (ROADMAP Queue 1).
+`diamond_io_find_crt_depth` picks the CRT depth from the composed error
+budget of `protocol_simulation`.
 
 Pipeline (obfuscation):
 - ternary payload k, hash-derived BGG pubkeys, Diamond injector preprocessing
@@ -772,3 +772,72 @@ class DiamondIO:
             out_bits.append(int(decode_centered_masked_integer_coeff(coeff, q, 2)))
         return out_bits
 
+
+
+def diamond_io_find_crt_depth(
+    ring_dimension: int,
+    crt_bits: int,
+    base_bits: int,
+    max_depth: int,
+    input_count: int,
+    batch_bits: int,
+    make_circuit,
+    error_sigma: float = 4.0,
+    trapdoor_sigma: float = 4.578,
+    secret_size: int = DIAMOND_SECRET_SIZE,
+    plt_norm_factory=None,
+    prf_config=None,
+    device="cuda",
+):
+    """Smallest crt_depth with a positive decode margin under the COMPOSED
+    protocol budget: injector transition bounds -> stored output projection
+    -> per-round PRF evolution (PRG circuit over norms, rebase preimage term,
+    refresh rounding) -> final mask PRG/decrypt -> function circuit ->
+    masked-decode projection, against q/4. Returns (depth, params) or None.
+
+    The injector and the PRF pipeline of each candidate are built for their
+    structure only (on `device`); the walk itself is host arithmetic."""
+    from ..ring.params import RingParams
+    from .protocol_simulation import (
+        diamond_compose_input_error,
+        simulate_prf_protocol_error,
+    )
+
+    for depth in range(1, max_depth + 1):
+        params = RingParams.new(ring_dimension, depth, crt_bits, base_bits)
+        injector = DiamondInjector(
+            params, input_count, 1 << batch_bits, batch_bits,
+            trapdoor_sigma, error_sigma, secret_size=secret_size, device=device,
+        )
+        e_enc, worst_state = diamond_compose_input_error(
+            params, injector, trapdoor_sigma
+        )
+        # the simulated circuit shapes come from the PRF config; the default
+        # wide p-basis keeps the nested-RNS budget constructible at large
+        # crt_bits with a small basis (the GSW-mul budget needs muls=2) -
+        # pass the production config to price a real deployment
+        cfg = prf_config or PrfConfig(
+            max_unreduced_muls=2, p_moduli_bits=16, p_basis="wide"
+        )
+        try:
+            prf = PrfMaskPipeline(
+                params, cfg, b"\0" * 32,
+                TrapdoorSampler(params, trapdoor_sigma, seed=0, device=device),
+                input_count, batch_bits, secret_size=secret_size,
+            )
+        except (ValueError, AssertionError):
+            # the candidate modulus cannot even host the nested-RNS basis
+            # (LUT domain or budget) - depth insufficient
+            continue
+        sim = simulate_prf_protocol_error(
+            params, prf, make_circuit(params),
+            input_error_norm=e_enc,
+            state_error_norm=worst_state,
+            error_sigma=error_sigma,
+            trapdoor_sigma=trapdoor_sigma,
+            secret_size=secret_size,
+            plt_norm_factory=plt_norm_factory,
+        )
+        if sim.ok:
+            return depth, params
+    return None
