@@ -93,25 +93,54 @@ no package beside it, a kernel that does not build, launch or agree):
    checked: online public keys == the offline pass, plaintexts [7, 6, 5]
    and 7 + 6X + 5X^2, c_s == sigma_s A - x_s sigma_s G exactly on every
    slot, B P == target for every preimage;
-14. `PolyMatrix.modulus_switch` of a uniform [1, 16] matrix at the same ring
+14. the GGH15 chain: phase 7's workload (n=2^13, L=8, d=1, error sigma 4.0
+   in the encodings and in the GGH15 targets, trapdoor sigma 4.578, the
+   49-entry mod-7 LUT, Mul -> PubLut -> Mul -> PubLut) with the GGH15
+   evaluators: the pubkey pass, `sample_aux_matrices` and
+   `wait_for_all_writes` into a temporary directory (4.47 GB of L_x and
+   gate preimages; its free space is checked first; deleted after), then a
+   fresh online evaluator that only reads the artifacts, and the same
+   circuit over 4-slot packed encodings (one secret per slot, c_b0 rows
+   S B0) through the same stored chain; checked: plaintexts == oracle on
+   every slot, encoding pubkeys == pubkey pass, the error c - s A_out +
+   y (s G) of the output and of every slot in (0, the bound of
+   `simulate_max_error_norm` with `NormPltGGH15Evaluator`] and that bound
+   under q/4, B1 L_x == target for all 49 stored L_x and B0 P == target for
+   all 10 gate stages (targets captured at the preimage calls, error
+   included); preimage-cols/s, the seconds of the trapdoors, preimages and
+   stores, bytes written and GB/s, the online and packed passes;
+15. WEE25 and the commitment-backed LUT at n=2^13, crt_bits 28, base_bits
+   14, d=1, tree_base 2, cut to L=3 (COMMIT_RING; the printed line gives
+   T_top's size by depth, which grows like k^5): the public params, a
+   commit/open/verify over a tree of 8 uniform blocks (verify True, and
+   False for a tampered message), then phase 14's chain over its 49-entry
+   table with zero-error encodings: the offline pass and
+   `commit_all_lut_matrices` into a temporary directory (deleted after),
+   and a fresh online evaluator that reads the commitment preimage;
+   checked: output pubkey == `derive_a_out_matrix`, plaintext == oracle,
+   c == s (A_out - G y) exactly, B0 preimage == commit + B_1; and one
+   `rlwe_encrypt` of random bits at n=2^13, L=8, every bit decrypted;
+   times of the public params (preimage-cols/s), the commit, each opening
+   and the online pass, and the phase's peak memory; K1 and K2 launched in
+   each of phases 13-15 (counters reset before, read after);
+16. `PolyMatrix.modulus_switch` of a uniform [1, 16] matrix at the same ring
    to each of its 8 limbs: every coefficient of 4 entries against the exact
    host rounding (c P + q // 2) // q mod P, and every residue against the
    plain limb-by-limb numpy version, zero mismatches;
-15. Diamond iO in packed payload mode (payload_slots 4) with debug replay,
+17. Diamond iO in packed payload mode (payload_slots 4) with debug replay,
    the shape of the JAX package's test_diamond_io_packed_payload_e2e, at a
    ring cut to what the card holds (n=2^12, L=2, crt_bits 28, base_bits 14;
    the printed line gives the cut and the bytes that forced it): the CI PRF
    config, the debug LUT evaluators, XOR and AND of two bits; obfuscate,
    eval of [0, 1] and [1, 1]; checked: both decode to [a ^ b, a & b],
-   c_one == sigma (A_one - G) exactly, K1/K2 launched in each of phases
-   13 and 15;
-16. the bench estimators: per-op costs measured on the card (each a
+   c_one == sigma (A_one - G) exactly, K1/K2 launched in it;
+18. the bench estimators: per-op costs measured on the card (each a
    warm-up, then the median wall time of a few runs between synchronizes) at
    n=2^13, L=8 (poly, BGG+ encoding d=1 and d=2, packed 4 slots, naive vec 4
    slots, each encoding model with its LWE online lookup as the PubLut
    cost; preimages d=1, d=2 and the FE's 1-column d=2, one masked decode)
    and at the Diamond iO ring (preimage d=2, naive vec 4 slots); the
-   estimates of phases 8, 9, 12 and 15 beside the times
+   estimates of phases 8, 9, 12 and 17 beside the times
    those phases measured above, with their ratio; the estimated injector and
    decoder preimage counts beside the preimages the runs made (checked
    equal), the estimated artifact bytes beside the bytes written; the AKY24
@@ -119,13 +148,13 @@ no package beside it, a kernel that does not build, launch or agree):
    search at n=2^13, crt_bits 28, base_bits 14 (checked: a depth is found
    and simulates ok); every cost checked finite and positive, K1/K2
    launched;
-17. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+19. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, each kernel against its plain version at the largest transform of
    the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
    profiled batched encoding pass, its device time split by stage;
-18. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+20. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
    path's count beside it in `launches_by_path`; each kernel's least time
    `bound_ms`, the larger of its device-memory time and its integer floor,
    and its share `pct_of_bound`; `library_ms` null, since no PyTorch call
@@ -1444,6 +1473,390 @@ def drive_slot_transfer(p, dev, timing) -> dict:
     return counts
 
 
+GGH15_KEY = bytes([0x6B, 0x15, 0x0D, 0x2A] * 8)
+COMMIT_KEY = bytes([0x3C] * 32)
+COMMIT_RING = (8192, 3, 28, 14)  # n, L, crt_bits, base_bits of the commit lut phase
+ERROR_SIGMA = 4.0
+TRAPDOOR_SIGMA = 4.578
+GGH15_SLOTS = 4
+
+
+def ggh15_error_bound(p, circuit) -> int:
+    """The simulated bound on the chain's output error (tests/test_noise_regime.py's
+    model: NormPltGGH15Evaluator, inputs of plaintext norm p - 1 and error
+    sigma * 6.5)."""
+    from decimal import Decimal
+
+    from mxx_tpu_torch.simulator import (
+        NormPltGGH15Evaluator,
+        SimulatorContext,
+        simulate_max_error_norm,
+    )
+
+    ctx = SimulatorContext.for_params(p, 1)
+    norm_eval = NormPltGGH15Evaluator(ctx, Decimal(ERROR_SIGMA), Decimal(ERROR_SIGMA))
+    outs = simulate_max_error_norm(circuit, ctx, Decimal(P_MOD - 1), circuit.num_input,
+                                   Decimal(ERROR_SIGMA) * Decimal("6.5"),
+                                   plt_evaluator=norm_eval)
+    return int(outs[0].matrix_norm.poly_norm.norm)
+
+
+def drive_ggh15_chain(p, dev, timing) -> dict:
+    """The LWE chain's workload with the GGH15 evaluators: offline pubkey
+    pass, `sample_aux_matrices` and `wait_for_all_writes` into a temporary
+    directory, then a fresh online evaluator that only reads the artifacts,
+    and the packed pass over the same chain (GGH15_SLOTS slots, one secret
+    per slot). Every preimage's target is captured at the preimage call and
+    every stored L_x and gate stage read back and held to it. Returns the
+    K1/K2 launch counts of the phase."""
+    import random
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch import config
+    from mxx_tpu_torch.bgg import BGGEncodingSampler, BGGPublicKeySampler
+    from mxx_tpu_torch.bgg.poly_encoding import BGGPolyEncodingSampler
+    from mxx_tpu_torch.lookup import PolyPltEvaluator, ggh15
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
+    from mxx_tpu_torch.storage import init_storage_system, wait_for_all_writes
+
+    q = p.modulus
+    k = p.modulus_digits
+    m_b, m_g = k + 2, k
+    circuit = mod_p_chain(p)
+    rng = random.Random(1515)
+    inputs = [rng.randrange(P_MOD) for _ in range(3)]
+    slot_inputs = [[rng.randrange(P_MOD) for _ in range(GGH15_SLOTS)] for _ in range(3)]
+    plaintexts = [Poly.const(p, v, dev) for v in inputs]
+    secrets = [UniformSampler(seed=150, device=dev).sample_poly(p, TernaryDist())]
+    pubkeys = BGGPublicKeySampler(GGH15_KEY, 1, device=dev).sample(p, b"ggh15", [True] * 3)
+    es = BGGEncodingSampler(p, secrets, gauss_sigma=ERROR_SIGMA, seed=151)
+    encodings = es.sample(p, pubkeys, plaintexts)
+    packed = BGGPolyEncodingSampler(p, secrets, GGH15_SLOTS, ERROR_SIGMA, seed=152)
+    slot_encs = packed.sample(p, pubkeys, [[Poly.const(p, v, dev) for v in vals]
+                                           for vals in slot_inputs])
+
+    entries = P_MOD * P_MOD
+    n_luts = circuit.gate_counts()["PubLut"]
+    poly_bytes = p.crt_depth * p.n * 4  # one poly's compact residues
+    want_bytes = (entries * m_b * m_g + n_luts * (4 * m_b * m_g + m_b * m_b)) * poly_bytes
+    cols = entries * m_g + n_luts * (4 * m_g + m_b)
+    captured = {}  # id(preimage) -> (its public matrix, its target, the preimage)
+    stored = {}  # stored prefix -> (public matrix, target, columns)
+    calls = []  # requests per call of the preimage body (chunks of LUT_PREIMAGE_CHUNK_SIZE)
+    chunk = config.lut_preimage_chunk_size()
+    inner_pre = TrapdoorSampler.preimage_batched_chunked
+    inner_store = ggh15.store_matrix_chunked
+
+    def recording_pre(self, params, trapdoor, public_matrix, targets, *args, **kwargs):
+        outs = inner_pre(self, params, trapdoor, public_matrix, targets, *args, **kwargs)
+        calls.extend(min(chunk, len(targets) - i) for i in range(0, len(targets), chunk))
+        for t, o in zip(targets, outs):
+            captured[id(o)] = (public_matrix, t, o)
+        return outs
+
+    def recording_store(matrix, id_prefix):
+        pub, target, _ = captured.pop(id(matrix))
+        stored[id_prefix] = (pub, target, matrix.ncol)
+        inner_store(matrix, id_prefix)
+
+    tmp = Path(tempfile.mkdtemp(prefix="mxx_ggh15_chain_"))
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"ggh15 chain: artifacts {entries} L_x of [{m_b}, {m_g}] + {n_luts} gates x "
+              f"(4 of [{m_b}, {m_g}] + P1 [{m_b}, {m_b}]) polys = {want_bytes} B to {tmp}; "
+              f"free there {free} B", flush=True)
+        if free < 2 * want_bytes:
+            raise SystemExit(f"chip_smoke: {tmp} has {free} B free, under twice the "
+                             f"{want_bytes} B of artifacts the GGH15 chain writes")
+        init_storage_system(tmp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        four_step.launches.update(fwd=0, inv=0)
+        pt, ms_oracle = timed(lambda: circuit.eval(p, Poly.one(p, dev), plaintexts,
+                                                   plt_evaluator=PolyPltEvaluator())[0])
+        pk_eval = ggh15.GGH15BGGPubKeyPltEvaluator(GGH15_KEY, 1, TRAPDOOR_SIGMA, ERROR_SIGMA,
+                                                   tmp, seed=153, device=dev)
+        out_pk, ms_pk = timed(lambda: circuit.eval(p, pubkeys[0], pubkeys[1:],
+                                                   plt_evaluator=pk_eval)[0])
+        cp = pk_eval.checkpoint_prefix(p)
+        TrapdoorSampler.preimage_batched_chunked = recording_pre
+        ggh15.store_matrix_chunked = recording_store
+        try:
+            with SpanLog() as spans:
+                _, ms_aux = timed(lambda: pk_eval.sample_aux_matrices(p))
+                _, ms_wait = timed(wait_for_all_writes)
+        finally:
+            TrapdoorSampler.preimage_batched_chunked = inner_pre
+            ggh15.store_matrix_chunked = inner_store
+        written = dir_bytes(tmp)
+
+        # online: a fresh evaluator that reads the artifacts
+        b0 = pk_eval.load_b0_matrix_checkpoint(p)
+        c_b0 = es.secret_vec @ b0
+        enc, ms_on = timed(lambda: circuit.eval(p, encodings[0], encodings[1:], plt_evaluator=(
+            ggh15.GGH15BGGEncodingPltEvaluator(GGH15_KEY, tmp, cp, p, c_b0)))[0])
+        slot_out, ms_packed = timed(lambda: circuit.eval(
+            p, slot_encs[0], slot_encs[1:], plt_evaluator=ggh15.GGH15BGGPolyEncodingPltEvaluator(
+                GGH15_KEY, tmp, cp, p, packed.secret_mat @ b0))[0])
+        counts = dict(four_step.launches)
+        peak = torch.cuda.max_memory_allocated()
+
+        # every stored preimage read back and held to its captured target
+        bad = [prefix for prefix, (pub, target, ncol) in stored.items()
+               if not pub @ ggh15.read_matrix_chunked(p, tmp, prefix, ncol, dev) == target]
+        n_lx = sum(1 for prefix in stored if "_lut_aux_" in prefix)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    expected = ((inputs[0] * inputs[1]) % P_MOD) * inputs[2] % P_MOD
+    slot_expected = [((a * b) % P_MOD) * c % P_MOD for a, b, c in zip(*slot_inputs)]
+    g = PolyMatrix.gadget_matrix(p, 1, dev)
+    bound = ggh15_error_bound(p, circuit)
+
+    def relation_error(secret_row, vector, pubkey, y) -> int:
+        return max_centered(p, vector - secret_row @ pubkey.matrix
+                            + (secret_row @ g).mul_poly_scalar(y))
+
+    err = relation_error(es.secret_vec, enc.vector, enc.pubkey, enc.plaintext)
+    slot_errs = [relation_error(packed.secret_mat.slice_rows(s, s + 1), slot_out.vector(s),
+                                slot_out.pubkey, slot_out.plaintext(s))
+                 for s in range(GGH15_SLOTS)]
+    ok_oracle = pt.const_coeff() == expected and enc.plaintext.const_coeff() == expected
+    ok_keys = enc.pubkey == out_pk and slot_out.pubkey == out_pk
+    # the decode condition; the simulated bound is printed beside it, not
+    # held: its G^{-1}(U_g) V_k term prices a zero-mean product, and the
+    # chain's second lookup exceeds it (ROADMAP Open items)
+    ok_err = 0 < err < q // 4 and bound < q // 4
+    ok_slots = ([x.const_coeff() for x in slot_out.plaintexts] == slot_expected
+                and all(0 < e < q // 4 for e in slot_errs))
+    ok_pre = (not bad and not captured and n_lx == entries
+              and len(stored) == entries + 5 * n_luts)
+
+    def bits(v):
+        return f"2^{math.log2(v):.2f}" if v else "0"
+
+    print(f"ggh15 chain n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits {p.base_bits} "
+          f"d=1 p={P_MOD}, {entries}-entry LUT, {circuit.gate_counts()}, error sigma "
+          f"{ERROR_SIGMA}: plaintext == oracle {ok_oracle}, encoding pubkeys == pubkey pass "
+          f"{ok_keys}, error {err} = {bits(err)} in (0, q/4 = {bits(q // 4)}) and the simulated "
+          f"bound {bits(bound)} under q/4: {ok_err} (error / bound = 2^"
+          f"{math.log2(err / bound) if err else float('-inf'):.2f}); B1 L_x == target for {n_lx} stored L_x "
+          f"and B0 P == target for {len(stored) - n_lx} gate stages: {ok_pre} ({len(bad)} "
+          f"bad; tolerance 0: exact); packed {GGH15_SLOTS} slots {slot_inputs}: plaintexts "
+          f"{[x.const_coeff() for x in slot_out.plaintexts]} == oracle {slot_expected} and "
+          f"slot errors {[bits(e) for e in slot_errs]} in (0, q/4): {ok_slots}; launches "
+          f"in the phase: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
+    pre_ms = spans.total_ms("ggh15.preimages")
+    span_cols = sum(r.fields["cols"] for r in spans.records
+                    if getattr(r, "span", None) == "ggh15.preimages")
+    writes = spans.events("storage.write_part")
+    write_ms = sum(w["elapsed_ms"] for w in writes)
+    timing("ggh15 chain: plaintext oracle", ms_oracle, "ms")
+    timing("ggh15 chain: pubkey pass", ms_pk, "ms")
+    timing("ggh15 chain: sample_aux_matrices", ms_aux, "ms",
+           f" (trapdoors {spans.total_ms('ggh15.trapdoors'):.1f} ms, LUT targets "
+           f"{spans.total_ms('ggh15.lut_targets'):.1f} ms, preimages {pre_ms:.1f} ms, stores "
+           f"(device-to-host copy + serialize + enqueue) {spans.total_ms('ggh15.store'):.1f} "
+           f"ms; wait_for_all_writes {ms_wait:.1f} ms)")
+    timing("ggh15 chain: preimages", span_cols / pre_ms * 1e3, "preimage-cols/s",
+           f" ({span_cols} cols in {len(calls)} calls of {calls} requests, {pre_ms:.1f} ms; "
+           f"reckoned "
+           f"{cols} cols)")
+    timing("ggh15 chain: artifacts written", written / 1e9, "GB",
+           f" ({written} B, reckoned {want_bytes} B of payloads; "
+           f"{written / (ms_aux + ms_wait) / 1e6:.3f} GB/s over sample_aux_matrices + "
+           f"wait_for_all_writes; disk write summed over writer threads {write_ms:.1f} ms in "
+           f"{len(writes)} parts, {written / max(write_ms, 1e-9) / 1e6:.3f} GB/s per thread)")
+    timing("ggh15 chain: online encoding pass", ms_on, "ms")
+    timing(f"ggh15 chain: packed pass ({GGH15_SLOTS} slots)", ms_packed, "ms")
+    timing("ggh15 chain: peak device memory", peak / 2**30, "GiB")
+    if not all((ok_oracle, ok_keys, ok_err, ok_slots, ok_pre)):
+        raise SystemExit(f"chip_smoke: GGH15 chain check failed (bad preimages {bad[:5]})")
+    require_launches("ggh15 chain", counts)
+    return counts
+
+
+def commit_sizes(args) -> tuple[int, int, int]:
+    """(polys, int64 bytes, preimage columns) of WEE25's T_top at d=1,
+    tree_base 2 on the ring `args` (n, L, crt_bits, base_bits)."""
+    n, L, crt_bits, base_bits = args
+    k = L * -(-crt_bits // base_bits)
+    m_b = k + 2
+    blocks = 2 * m_b * k  # l * m_g
+    j2m = 2 * m_b * k
+    polys = blocks * m_b * j2m
+    return polys, polys * L * n * 8, blocks * j2m
+
+
+def drive_commit_lut(p, dev, timing) -> dict:
+    """WEE25 and the commitment-backed LUT at a ring cut to fit T_top
+    (COMMIT_RING): the public params, a commit/open/verify over a tree of 8
+    uniform blocks (and a tampered message), then the mod-p chain with
+    zero-error encodings: the offline pass and `commit_all_lut_matrices`
+    into a temporary directory, and a fresh online evaluator that reads the
+    commitment preimage. Also one `rlwe_encrypt` at the realistic ring.
+    Returns the K1/K2 launch counts of the phase."""
+    import random
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BGGEncodingSampler, BGGPublicKeySampler
+    from mxx_tpu_torch.commit import MsgMatrixStream, Wee25Commit
+    from mxx_tpu_torch.lookup import PolyPltEvaluator
+    from mxx_tpu_torch.lookup.commit_eval import (
+        PREIMAGE_OF_COMMIT_ID,
+        CommitBGGEncodingPltEvaluator,
+        CommitBGGPubKeyPltEvaluator,
+        derive_a_out_matrix,
+    )
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.params import RingParams
+    from mxx_tpu_torch.ring.poly import Poly
+    from mxx_tpu_torch.rlwe_enc import rlwe_encrypt
+    from mxx_tpu_torch.sampler import (
+        BitDist,
+        FinRingDist,
+        TernaryDist,
+        TrapdoorSampler,
+        UniformSampler,
+    )
+    from mxx_tpu_torch.storage import (
+        init_storage_system,
+        read_matrix_from_multi_batch,
+        wait_for_all_writes,
+    )
+
+    pc = RingParams.new(*COMMIT_RING)
+    walls = {L: commit_sizes((pc.n, L, pc.crt_bits, pc.base_bits)) for L in (2, 3, 4, p.crt_depth)}
+    print(f"commit lut: T_top at n={pc.n} crt_bits {pc.crt_bits} base_bits {pc.base_bits} d=1 "
+          f"tree_base 2 by depth (polys, int64 bytes on the card, preimage columns): "
+          + "; ".join(f"L={L}: {v[0]}, {v[1]} B, {v[2]}" for L, v in walls.items())
+          + f"; cut to L={pc.crt_depth} (the realistic L={p.crt_depth} needs "
+          f"{walls[p.crt_depth][1]} B)", flush=True)
+    k = pc.modulus_digits
+    scheme = Wee25Commit(1, 2, k + 2, k, TRAPDOOR_SIGMA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    four_step.launches.update(fwd=0, inv=0)
+    ms = {}
+    pp, ms["public params"] = timed(lambda: scheme.sample_public_params(
+        pc, COMMIT_KEY, seed=160, device=dev))
+    pp_cols = scheme.l * scheme.m_g * scheme.l * k
+
+    # a WEE25 tree of 8 uniform blocks
+    us = UniformSampler(seed=161, device=dev)
+    blocks = [us.sample_uniform(pc, 1, scheme.m_b, FinRingDist()) for _ in range(8)]
+    stream = MsgMatrixStream.from_blocks(blocks)
+    (commitment, cache), ms["commit, 8 blocks"] = timed(lambda: scheme.commit(pc, stream, pp))
+    openings = []
+    for col in range(len(blocks)):
+        z, ms_open = timed(lambda c=col: scheme.open(pc, stream, range(c, c + 1), pp, cache))
+        openings.append(z)
+        ms.setdefault("openings", []).append(ms_open)
+    msg = blocks[0].concat_columns(blocks[1:])
+    opening = openings[0].concat_columns(openings[1:])
+    ok_verify, ms["verify"] = timed(lambda: scheme.verify(pc, msg, commitment, opening, None, pp))
+    bad_msg = msg + PolyMatrix.identity(pc, 1, device=dev).concat_columns(
+        [PolyMatrix.zero(pc, 1, msg.ncol - 1, device=dev)])
+    ok_tamper = not scheme.verify(pc, bad_msg, commitment, opening, None, pp)
+
+    # the mod-p chain through the commitment LUT
+    circuit = mod_p_chain(pc)
+    rng = random.Random(1616)
+    inputs = [rng.randrange(P_MOD) for _ in range(3)]
+    plaintexts = [Poly.const(pc, v, dev) for v in inputs]
+    secrets = [UniformSampler(seed=162, device=dev).sample_poly(pc, TernaryDist())]
+    pubkeys = BGGPublicKeySampler(COMMIT_KEY, 1, device=dev).sample(pc, b"commit", [True] * 3)
+    es = BGGEncodingSampler(pc, secrets)  # zero error: the scheme decodes only so
+    encodings = es.sample(pc, pubkeys, plaintexts)
+    ts = TrapdoorSampler(pc, TRAPDOOR_SIGMA, seed=163, device=dev)
+    b0_td, b0 = ts.trapdoor(pc, 1)
+    s_vec = es.secret_vec
+    tmp = Path(tempfile.mkdtemp(prefix="mxx_commit_lut_"))
+    try:
+        init_storage_system(tmp)
+        off = CommitBGGPubKeyPltEvaluator(pc, scheme, pp, COMMIT_KEY)
+        out_pk, ms["pubkey pass"] = timed(lambda: circuit.eval(pc, pubkeys[0], pubkeys[1:],
+                                                               plt_evaluator=off)[0])
+
+        def commit_all():
+            off.commit_all_lut_matrices(ts, b0_td, b0)
+            wait_for_all_writes()
+        _, ms["commit_all_lut_matrices"] = timed(commit_all)
+        on, ms["online evaluator set-up"] = timed(lambda: CommitBGGEncodingPltEvaluator(
+            pc, scheme, pp, COMMIT_KEY, circuit, pubkeys[0], pubkeys[1:], s_vec @ b0,
+            s_vec @ pp.b, tmp))
+        enc, ms["online encoding pass"] = timed(lambda: circuit.eval(
+            pc, encodings[0], encodings[1:], plt_evaluator=on)[0])
+        preimage = read_matrix_from_multi_batch(pc, tmp, PREIMAGE_OF_COMMIT_ID, 0, dev)
+        table_commit, _ = scheme.commit(pc, on.stream, pp)
+        ok_pre = b0 @ preimage == table_commit + on.b_1
+        nbytes = dir_bytes(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = dict(four_step.launches)
+    peak = torch.cuda.max_memory_allocated()
+    del pp, cache, openings, on
+
+    pt = circuit.eval(pc, Poly.one(pc, dev), plaintexts, plt_evaluator=PolyPltEvaluator())[0]
+    expected = ((inputs[0] * inputs[1]) % P_MOD) * inputs[2] % P_MOD
+    out_gate = circuit.output_ids[0]
+    ok_key = (enc.pubkey == out_pk
+              and out_pk.matrix == derive_a_out_matrix(pc, 1, COMMIT_KEY, out_gate, dev))
+    ok_oracle = pt.const_coeff() == expected and enc.plaintext.const_coeff() == expected
+    g = PolyMatrix.gadget_matrix(pc, 1, dev)
+    ok_exact = enc.vector == s_vec @ (enc.pubkey.matrix - g.mul_poly_scalar(enc.plaintext))
+
+    # one RLWE encryption of random bits at the realistic ring, decrypted
+    ur = UniformSampler(seed=164, device=dev)
+    m = ur.sample_poly(p, BitDist())
+    a = ur.sample_uniform(p, 1, 1, FinRingDist())
+    t = ur.sample_uniform(p, 1, 1, TernaryDist())
+    m_mat = PolyMatrix.from_poly_row(p, [m])
+    b, ms["rlwe_encrypt"] = timed(lambda: rlwe_encrypt(p, ur, t, a, m_mat, ERROR_SIGMA))
+    q = p.modulus
+    quarter = ((q + 1) // 2) >> 1
+    recovered = (b - a @ t).entry(0, 0).coeffs()
+    ok_rlwe = [quarter <= c < 3 * quarter for c in recovered] == [c == 1 for c in m.coeffs()]
+    torch.cuda.synchronize()
+
+    print(f"commit lut n={pc.n} L={pc.crt_depth} crt_bits {pc.crt_bits} base_bits "
+          f"{pc.base_bits} d=1 tree_base 2 (m_b {scheme.m_b}, l {scheme.l}, "
+          f"{scheme.l * scheme.m_g} T_top blocks): WEE25 over 8 blocks verifies {ok_verify}, "
+          f"tampered message rejected {ok_tamper}; chain {circuit.gate_counts()} over the "
+          f"{P_MOD * P_MOD}-entry table, zero-error encodings: output pubkey == pubkey pass == "
+          f"derive_a_out_matrix {ok_key}, plaintext == oracle {ok_oracle}, c == s (A_out - G y) "
+          f"{ok_exact}, B0 preimage == commit + B_1 {ok_pre} (tolerance 0: exact); artifacts "
+          f"{nbytes} B (directory deleted); rlwe_encrypt at n={p.n} L={p.crt_depth} decrypts "
+          f"every bit {ok_rlwe}; launches in the phase: fwd {counts['fwd']}, inv "
+          f"{counts['inv']}", flush=True)
+    timing(f"commit lut: public params (L={pc.crt_depth})", pp_cols / ms["public params"] * 1e3,
+           "preimage-cols/s", f" ({ms['public params']:.1f} ms, {pp_cols} cols; T_top "
+           f"{walls[pc.crt_depth][1]} B)")
+    for name in ("commit, 8 blocks", "verify", "pubkey pass", "commit_all_lut_matrices",
+                 "online evaluator set-up", "online encoding pass"):
+        timing(f"commit lut: {name}", ms[name], "ms")
+    timing("commit lut: openings of the 8-block tree", statistics.median(ms["openings"]), "ms",
+           " per opening (median; each " + ", ".join(f"{v:.1f}" for v in ms["openings"])
+           + " ms)")
+    timing(f"commit lut: rlwe_encrypt n={p.n} L={p.crt_depth}", ms["rlwe_encrypt"], "ms")
+    timing(f"commit lut: peak device memory (L={pc.crt_depth})", peak / 2**30, "GiB")
+    if not all((ok_verify, ok_tamper, ok_key, ok_oracle, ok_exact, ok_pre, ok_rlwe)):
+        raise SystemExit("chip_smoke: commit LUT check failed")
+    require_launches("commit lut", counts)
+    return counts
+
+
 def ms_plain(p, data, new_modulus):
     """The modulus switch of `PolyMatrix.modulus_switch` restated limb by
     limb in numpy on the host (the same integer parts and float64 fractions,
@@ -1892,22 +2305,30 @@ def main() -> None:
     st_counts = drive_slot_transfer(p, dev, timing)
     torch.cuda.empty_cache()
 
-    # 14. modulus switching to each limb
+    # 14. the GGH15 chain at the realistic-scale workload, scalar and packed
+    ggh15_counts = drive_ggh15_chain(p, dev, timing)
+    torch.cuda.empty_cache()
+
+    # 15. WEE25 and the commitment LUT, at a ring cut to fit T_top
+    commit_counts = drive_commit_lut(p, dev, timing)
+    torch.cuda.empty_cache()
+
+    # 16. modulus switching to each limb
     drive_modulus_switch(p, dev, timing)
 
-    # 15. Diamond iO, packed payload, debug replay, at a ring cut to fit the card
+    # 17. Diamond iO, packed payload, debug replay, at a ring cut to fit the card
     dio = drive_diamond_io(RingParams.new(*DIO_RING), dev, timing)
     torch.cuda.empty_cache()
 
-    # 16. the estimators: per-op costs on the card, estimates beside the
-    # times of phases 8, 9, 12 and 15, and the AKY24 iO depth search
+    # 18. the estimators: per-op costs on the card, estimates beside the
+    # times of phases 8, 9, 12 and 17, and the AKY24 iO depth search
     est_counts = drive_estimators(p, RingParams.new(*DIO_RING), dev, timing, we, fe, decode, dio)
     we_counts, fe_counts, decode_counts, dio_counts = (
         x["launches"] for x in (we, fe, decode, dio))
     del we, fe, decode, dio
     torch.cuda.empty_cache()
 
-    # 17. timings
+    # 19. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -1970,7 +2391,8 @@ def main() -> None:
                    "lwe lut chain": lut_counts[d], "diamond we": we_counts[d],
                    "aky24 fe": fe_counts[d], "nested rns mul": nested_counts[d],
                    "noise refresh": refresh_counts[d], "masked decode": decode_counts[d],
-                   "slot transfer": st_counts[d], "diamond io": dio_counts[d],
+                   "slot transfer": st_counts[d], "ggh15 chain": ggh15_counts[d],
+                   "commit lut": commit_counts[d], "diamond io": dio_counts[d],
                    "estimators": est_counts[d]}
                for d in ("fwd", "inv")}
     cases = [

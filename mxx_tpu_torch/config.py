@@ -23,6 +23,11 @@ def lut_preimage_chunk_size() -> int:
     return _env_int("LUT_PREIMAGE_CHUNK_SIZE", 16)
 
 
+def aux_sampling_chunk_width() -> int:
+    """Column width of the chunks a stored GGH15 preimage is split into."""
+    return _env_int("AUX_SAMPLING_CHUNK_WIDTH", 1 << 12)
+
+
 def lut_bytes_limit() -> int:
     """Largest batch file of the artifact store; bigger buffers split."""
     return _env_int("LUT_BYTES_LIMIT", 1 << 30)

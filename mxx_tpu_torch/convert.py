@@ -5,8 +5,9 @@ one), so this module imports neither jax nor `mxx_tpu`: the tests use it to
 run the port on the JAX package's trapdoor, public matrix, keys, BGG+ public
 keys, encodings and secrets, a Diamond injector's final checkpoints, Diamond
 WE ciphertexts, the AKY24 FE keys and ciphertexts, a noise refresher's
-material, packed and vec BGG+ wires, and Diamond iO obfuscations. Artifact
-files need no bridge: both packages write the same bytes. Native GSW
+material, packed and vec BGG+ wires, Diamond iO obfuscations and WEE25
+public params. Artifact files need no bridge: both packages write the same
+bytes (a GGH15 chain's trapdoors too, as compact bytes). Native GSW
 ciphertexts are Python ints and cross as they are.
 """
 
@@ -18,6 +19,7 @@ import torch
 from .bgg import BggEncoding, BggPublicKey
 from .bgg.poly_encoding import BggPolyEncoding
 from .bgg.vec import BGGEncodingVec, BGGPublicKeyVec
+from .commit import Wee25PublicParams
 from .func_enc import Aky24Ciphertext, Aky24FuncKey, Aky24MasterKey
 from .input_injector import DiamondInjectorPreprocessOut
 from .io_protocols import DiamondIOObf
@@ -210,6 +212,21 @@ def diamond_io_obf_from_numpy(params: RingParams, hash_key: bytes, trapdoors, pu
         bytes(hash_key),
         preprocess_out_from_numpy(params, trapdoors, pub_matrices, device),
         int(num_outputs), consts, list(seed_cts), debug,
+    )
+
+
+def wee25_public_params_from_numpy(params: RingParams, b, t_bottom, t_top, hash_key: bytes,
+                                   device="cuda") -> Wee25PublicParams:
+    """WEE25 public params made by the JAX package: B and T_bottom as
+    (residues, fmt) pairs, and its T_top preimages as such pairs in block
+    order (the values of its `t_top` dict by key), stacked by rows in EVAL
+    form as the port keeps them."""
+    blocks = [poly_matrix_from_numpy(params, *pair, device).to_eval() for pair in t_top]
+    return Wee25PublicParams(
+        poly_matrix_from_numpy(params, *b, device),
+        poly_matrix_from_numpy(params, *t_bottom, device),
+        blocks[0].concat_rows(blocks[1:]),
+        bytes(hash_key),
     )
 
 

@@ -268,6 +268,10 @@ class PolyMatrix:
         )
         return PolyMatrix(out, COEFF, p)
 
+    def get_column_matrix_decompose(self, j: int) -> "PolyMatrix":
+        """G^{-1} of column j: [r, 1] -> [r*k, 1]."""
+        return self.slice_columns(j, j + 1).decompose()
+
     def mul_decompose(self, other: "PolyMatrix") -> "PolyMatrix":
         """self @ G^{-1}(other): self [*, d*k], other [d, m] -> [*, m]."""
         k = self.params.modulus_digits

@@ -278,6 +278,11 @@ def get_lookup_buffer(matrices: list, id_prefix: str) -> BatchLookupBuffer:
     return BatchLookupBuffer(id_prefix, payloads)
 
 
+def get_lookup_buffer_bytes(payloads: list[tuple[int, bytes]], id_prefix: str) -> BatchLookupBuffer:
+    """A buffer of (idx, raw bytes) pairs, stored as they are."""
+    return BatchLookupBuffer(id_prefix, list(payloads))
+
+
 def add_lookup_buffer(buffer: BatchLookupBuffer):
     get_storage_system().add_buffer(buffer)
 

@@ -1,13 +1,12 @@
 """Packed slot-wise BGG encodings of the port against the JAX package
-(mirrors `tests/test_poly_encoding.py` without its GGH15 case, whose
-evaluators are not ported yet).
+(mirrors `tests/test_poly_encoding.py`).
 
 The samplers, the homomorphic ops and the circuit pass are integer work:
 bit for bit against `mxx_tpu`, and every slot exact in its invariant
 c_s = sigma_s A - x_s sigma_s G. The packed LWE lookup samples float-Gaussian
-K_high preimages, so there the output public key is held to the JAX
-package's bit for bit, and the output to its plaintexts and the exact slot
-invariant.
+K_high preimages, and the packed GGH15 lookup float-Gaussian chain
+preimages, so there the output public key is held to the JAX package's bit
+for bit, and the output to its plaintexts and the exact slot invariant.
 """
 
 import importlib
@@ -25,7 +24,8 @@ BOTH = ("mxx_tpu", "mxx_tpu_torch")
 def load(pkg):
     mods = {"params": "ring.params", "poly": "ring.poly", "matrix": "matrix",
             "sampler": "sampler", "bgg": "bgg", "pe": "bgg.poly_encoding",
-            "circuit": "circuit", "lookup": "lookup", "storage": "storage"}
+            "circuit": "circuit", "lookup": "lookup", "storage": "storage",
+            "ggh15": "lookup.ggh15"}
     ns = SimpleNamespace(**{k: importlib.import_module(f"{pkg}.{m}") for k, m in mods.items()})
     ns.kw = {"device": "cpu"} if pkg == "mxx_tpu_torch" else {}
     return ns
@@ -122,4 +122,34 @@ def test_packed_lwe_lookup(tmp_path):
     assert [p.const_coeff() for p in got.plaintexts] == [1, 4, 1]
     check_slot_invariant(ns, params, got, sampler)
     jresult_pk = _lwe_lookup(load("mxx_tpu"), tmp_path / "j")[5]
+    np.testing.assert_array_equal(_np(result_pk.matrix), _np(jresult_pk.matrix))
+
+
+def _ggh15_pubkey_pass(ns, tmp_path):
+    params = ns.params.RingParams.default()
+    sampler, pubkeys, encs = make_packed(ns, params, [[3, 5, 9]], seed=70)
+    circuit = ns.circuit.PolyCircuit()
+    w = circuit.input(1)
+    lid = circuit.register_public_lut(
+        ns.lookup.PublicLut.from_dict(params, {x: (x, x % 4) for x in range(16)}))
+    circuit.output([circuit.public_lookup_gate(w[0], lid)])
+    ns.storage.init_storage_system(tmp_path)
+    pk_eval = ns.ggh15.GGH15BGGPubKeyPltEvaluator(KEY, 1, 4.578, 0.0, tmp_path, seed=71, **ns.kw)
+    result_pk = circuit.eval(params, pubkeys[0], pubkeys[1:], plt_evaluator=pk_eval)[0]
+    return params, sampler, encs, circuit, pk_eval, result_pk
+
+
+def test_packed_ggh15_lookup(tmp_path):
+    ns = load("mxx_tpu_torch")
+    params, sampler, encs, circuit, pk_eval, result_pk = _ggh15_pubkey_pass(ns, tmp_path / "t")
+    pk_eval.sample_aux_matrices(params)
+    ns.storage.wait_for_all_writes()
+    b0 = pk_eval.load_b0_matrix_checkpoint(params)
+    enc_eval = ns.ggh15.GGH15BGGPolyEncodingPltEvaluator(
+        KEY, tmp_path / "t", pk_eval.checkpoint_prefix(params), params, sampler.secret_mat @ b0)
+    got = circuit.eval(params, encs[0], encs[1:], plt_evaluator=enc_eval)[0]
+    assert got.pubkey == result_pk
+    assert [p.const_coeff() for p in got.plaintexts] == [3, 1, 1]
+    check_slot_invariant(ns, params, got, sampler)
+    jresult_pk = _ggh15_pubkey_pass(load("mxx_tpu"), tmp_path / "j")[5]
     np.testing.assert_array_equal(_np(result_pk.matrix), _np(jresult_pk.matrix))
