@@ -7,8 +7,9 @@ Run from the root of a checkout. It imports no jax and nothing of the JAX
 package, needs one card, and exits non-zero on any failure (no CUDA device,
 no package beside it, a kernel that does not build, launch or agree):
 
-1. the card's name and power limit (nvidia-smi), then the kernel builds (one
-   nvcc per source, started together);
+1. the card's name and power limit (nvidia-smi), then the builds, all
+   started together: one nvcc per kernel source, one g++ for each of the
+   host codec and writer;
 2. the four-step NTT kernels (K1 forward, K2 inverse) against the radix
    chain (whole batch) and the plain four-step (first 8 polys), and the round
    trip, at
@@ -148,13 +149,38 @@ no package beside it, a kernel that does not build, launch or agree):
    search at n=2^13, crt_bits 28, base_bits 14 (checked: a depth is found
    and simulates ok); every cost checked finite and positive, K1/K2
    launched;
-19. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+19. `core ops` at n=2^13, L=8, crt_bits 28, base_bits 14: `mul_decompose`
+   of a [2, 32] by a [2, 512] matrix with G^-1 whole and in column chunks of
+   64 (MXX_MUL_DECOMPOSE_COLUMN_CHUNK_WIDTH; times and peaks of both), G
+   G^-1(B) == B, the small gadget and decomposition, the tensor-identity
+   products against the materialized I_4 x other, `concat_diag`, the
+   hash-decomposed samplers against the decompositions of `sample_hash`, the
+   Poly round trips (EVAL slots, base digits, threshold bits), packed bytes
+   of an [18, 16] matrix (the LWE chain's K_high shape; ratio and GB/s of
+   pack and unpack) and .mxxp/.mxxm files, all exact;
+20. `ckks`: one CKKS mul + relinearize + rescale at the same ring (p-moduli
+   below 2^8, scale 2^24, one relinearization level): the circuit built,
+   saved with `save_circuit`, loaded with `load_circuit` (JSON round trip
+   equal), and the loaded circuit evaluated over constant polys on the card
+   through `eval_batched` (the JAX tests' mode); checked: the decrypted
+   product and the rescaled product within 0.1 of m1 m2; the BGG+ sizing
+   that keeps it off BGG+ wires, projected from phase 10's measured pass;
+21. `montgomery`: one Montgomery multiplication mod 64513 (4 limbs of 4
+   bits) over BGG+ public keys and encodings lifted from the one wire, as in
+   phase 10: inputs the Montgomery forms of x and y, the output converts
+   back to x y mod N, plaintexts == oracle, encoding pubkeys == pubkey pass,
+   c == s A - pt (s G), all exact;
+22. `ntt circuit`: `forward_ntt` then `inverse_ntt` over 8 packed slots mod
+   17 at n=2^13 over `PolyVec` plaintexts on the card: the forward output
+   equals the host NTT mod 17 and the round trip the input; K1 and K2
+   launched in each of phases 19-22 (counters reset before, read after);
+23. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, each kernel against its plain version at the largest transform of
    the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
    profiled batched encoding pass, its device time split by stage;
-20. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+24. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
    path's count beside it in `launches_by_path`; each kernel's least time
    `bound_ms`, the larger of its device-memory time and its integer floor,
    and its share `pct_of_bound`; `library_ms` null, since no PyTorch call
@@ -164,9 +190,12 @@ no package beside it, a kernel that does not build, launch or agree):
 import json
 import logging
 import math
+import os
+import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
@@ -242,7 +271,8 @@ def ntt_bound(shape, products: int) -> dict:
 
 
 def build_kernels(modules) -> None:
-    """One nvcc per source, all started together; ptxas lines printed."""
+    """One compiler per source (nvcc for a kernel, g++ for host code), all
+    started together; ptxas lines printed."""
     from mxx_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
@@ -533,6 +563,7 @@ def drive_lwe_lut(p, dev, timing) -> dict:
     )
     from mxx_tpu_torch.lookup.lwe import k_high_checkpoint_prefix
     from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.native import writer
     from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
@@ -587,9 +618,11 @@ def drive_lwe_lut(p, dev, timing) -> dict:
         out_pk = clock("pubkey pass", lambda: circuit.eval(
             p, pubkeys[0], pubkeys[1:], plt_evaluator=pk_eval)[0])
         states = dict(pk_eval.gate_state)
-        with SpanLog() as spans:
+        with SpanLog() as spans, HostRssPeak() as rss:
             clock("sample_aux_matrices", lambda: pk_eval.sample_aux_matrices(p))
+            held = writer.held_files()
             clock("wait_for_all_writes", wait_for_all_writes)
+        host_note = offline_host_note(rss, held, len(spans.events("storage.write_part")))
         c_b = es.secret_vec @ b0
         enc_eval = LWEBGGEncodingPltEvaluator(BGG_KEY, tmp, c_b)
         enc = clock("encoding pass", lambda: circuit.eval(
@@ -645,7 +678,6 @@ def drive_lwe_lut(p, dev, timing) -> dict:
     cols = sum(r.fields["cols"] for r in spans.records
                if getattr(r, "span", None) == "lwe_lut.k_high_preimages")
     writes = spans.events("storage.write_part")
-    write_ms = sum(w["elapsed_ms"] for w in writes)
     pre_ms = spans.total_ms("lwe_lut.k_high_preimages")
     d2h_ms = spans.total_ms("storage.device_to_host")
     ser_ms = spans.total_ms("storage.serialize")
@@ -661,9 +693,10 @@ def drive_lwe_lut(p, dev, timing) -> dict:
            f" ({want_bytes / (d2h_ms + ser_ms) / 1e6:.3f} GB/s; copy {d2h_ms:.1f} ms, "
            f"{want_bytes / d2h_ms / 1e6:.3f} GB/s; serialize {ser_ms:.1f} ms, "
            f"{want_bytes / ser_ms / 1e6:.3f} GB/s)")
-    timing("lwe lut chain: disk write, summed over writer threads", write_ms, "ms",
-           f" ({written} B in {parts} batch files, {written / write_ms / 1e6:.3f} GB/s "
-           f"per thread; wait_for_all_writes {ms['wait_for_all_writes']:.1f} ms)")
+    timing("lwe lut chain: wait_for_all_writes (the native writer's barrier)",
+           ms["wait_for_all_writes"], "ms",
+           f" ({written} B in {parts} batch files, {len(writes)} queued to the C++ writer "
+           f"without a copy; {host_note})")
     timing("lwe lut chain: encoding pass", ms["encoding pass"], "ms")
     timing("lwe lut chain: decode", ms["decode"], "ms")
     print(f"lwe lut chain: bytes written {written} (reckoned {want_bytes} of payloads)",
@@ -1012,24 +1045,20 @@ def require_launches(phase: str, counts: dict) -> None:
                          "kernels")
 
 
-def drive_nested_rns_mul(p, dev, timing) -> dict:
-    """One nested-RNS modular multiplication (the unit every RingGSW external
-    product is made of) over BGG+ public keys and encodings whose inputs are
-    lifted from the one wire. Returns the K1/K2 launch counts of the phase."""
-    import random
-
+def lifted_passes(p, dev, circuit, values, tag: bytes, seed: int) -> dict:
+    """`circuit` over BGG+ public keys and encodings (d=1, error sigma 4.0)
+    whose inputs are the constants `values` lifted from the one wire by
+    `lift_constants_batched`, both passes through `eval_batched` with the
+    debug LUT evaluators, then the plaintext oracle over constant polys.
+    The K1/K2 launch counters are reset before the lifts and read after the
+    passes. Checks (exact): lifts == per-call `large_scalar_mul` on a
+    sample, lifted wires on the card, plaintexts == oracle, encoding pubkeys
+    == pubkey pass, c == s A - pt (s G) for every output."""
     import torch
 
     from mxx_tpu_torch.bgg import BGGEncodingSampler, BGGPublicKeySampler
-    from mxx_tpu_torch.bgg.lift import lift_chunk_size, lift_constants_batched
-    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.bgg.lift import lift_constants_batched
     from mxx_tpu_torch.circuit.batched_eval import eval_batched
-    from mxx_tpu_torch.gadgets.arith.nested_rns import (
-        NestedRnsPoly,
-        decode_nested_rns_outputs,
-        encode_nested_rns_value,
-    )
-    from mxx_tpu_torch.gadgets.fhe import RingGswContext
     from mxx_tpu_torch.lookup import (
         DebugBGGEncodingPltEvaluator,
         DebugBGGPubKeyPltEvaluator,
@@ -1040,23 +1069,9 @@ def drive_nested_rns_mul(p, dev, timing) -> dict:
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.sampler import TernaryDist, UniformSampler
 
-    circuit = PolyCircuit()
-    ctx = RingGswContext(circuit, p, 8, 2, p_basis="wide").nested
-    a = NestedRnsPoly.input(ctx, circuit)
-    b = NestedRnsPoly.input(ctx, circuit)
-    prod = a.mul(b, circuit).full_reduce(circuit)
-    circuit.output(prod.flatten() + [prod.reconstruct(circuit)])
-    counts_by_kind = circuit.gate_counts()
-    n_gates = sum(v for g, v in counts_by_kind.items() if g != "Input")
-    n_lut = counts_by_kind.get("PubLut", 0)
-
-    rng = random.Random(61)
-    q_big = p.modulus
-    x, y = rng.randrange(q_big), rng.randrange(q_big)
-    values = [r for v in (x, y) for row in encode_nested_rns_value(ctx, v) for r in row]
-    secret = UniformSampler(seed=62, device=dev).sample_poly(p, TernaryDist())
-    one_pk = BGGPublicKeySampler(BGG_KEY, 1, device=dev).sample(p, b"nested_rns", [])
-    es = BGGEncodingSampler(p, [secret], gauss_sigma=4.0, seed=63)
+    secret = UniformSampler(seed=seed, device=dev).sample_poly(p, TernaryDist())
+    one_pk = BGGPublicKeySampler(BGG_KEY, 1, device=dev).sample(p, tag, [])
+    es = BGGEncodingSampler(p, [secret], gauss_sigma=4.0, seed=seed + 1)
     one_enc = es.sample(p, one_pk, [])[0]
     s = es.secret_vec
 
@@ -1083,45 +1098,91 @@ def drive_nested_rns_mul(p, dev, timing) -> dict:
         p, Poly.one(p, dev), [Poly.const(p, v, dev) for v in values],
         plt_evaluator=PolyPltEvaluator()))
     s_g = s @ PolyMatrix.gadget_matrix(p, 1, dev)
+    ok_oracle = all(e.plaintext == o for e, o in zip(enc_out, oracle))
+    ok_keys = all(e.pubkey == k_ for e, k_ in zip(enc_out, pk_out))
+    ok_rel = all(e.vector == s @ e.pubkey.matrix - s_g.mul_poly_scalar(o)
+                 for e, o in zip(enc_out, oracle))
+    torch.cuda.synchronize()
+    return dict(one_pk=one_pk[0], pk_in=pk_in, pk_out=pk_out, enc_out=enc_out, oracle=oracle,
+                counts=counts, peak=peak, stores=stores, sample=sample, ok_lift=ok_lift,
+                ok_lift_card=ok_lift_card, ok_oracle=ok_oracle, ok_keys=ok_keys, ok_rel=ok_rel,
+                ms_lift_pk=ms_lift_pk, ms_lift_enc=ms_lift_enc, ms_pk=ms_pk, ms_enc=ms_enc,
+                ms_oracle=ms_oracle)
+
+
+def drive_nested_rns_mul(p, dev, timing, record: dict | None = None) -> dict:
+    """One nested-RNS modular multiplication (the unit every RingGSW external
+    product is made of) over BGG+ public keys and encodings whose inputs are
+    lifted from the one wire. Returns the K1/K2 launch counts of the phase;
+    `record` receives the passes' times and gate counts."""
+    import random
+
+    from mxx_tpu_torch.bgg.lift import lift_chunk_size
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.circuit.batched_eval import eval_batched
+    from mxx_tpu_torch.gadgets.arith.nested_rns import (
+        NestedRnsPoly,
+        decode_nested_rns_outputs,
+        encode_nested_rns_value,
+    )
+    from mxx_tpu_torch.gadgets.fhe import RingGswContext
+    from mxx_tpu_torch.lookup import DebugBGGPubKeyPltEvaluator
+
+    circuit = PolyCircuit()
+    ctx = RingGswContext(circuit, p, 8, 2, p_basis="wide").nested
+    a = NestedRnsPoly.input(ctx, circuit)
+    b = NestedRnsPoly.input(ctx, circuit)
+    prod = a.mul(b, circuit).full_reduce(circuit)
+    circuit.output(prod.flatten() + [prod.reconstruct(circuit)])
+    counts_by_kind = circuit.gate_counts()
+    n_gates = sum(v for g, v in counts_by_kind.items() if g != "Input")
+    n_lut = counts_by_kind.get("PubLut", 0)
+
+    rng = random.Random(61)
+    q_big = p.modulus
+    x, y = rng.randrange(q_big), rng.randrange(q_big)
+    values = [r for v in (x, y) for row in encode_nested_rns_value(ctx, v) for r in row]
+    run = lifted_passes(p, dev, circuit, values, b"nested_rns", 62)
+    enc_out, counts, sample = run["enc_out"], run["counts"], run["sample"]
     k, levels = ctx.k, prod.levels
     raw = [e.plaintext.const_value() for e in enc_out]
     rows = [raw[lvl * k:(lvl + 1) * k] for lvl in range(levels)]
     want = x * y % q_big
     ok_decode = decode_nested_rns_outputs(ctx, rows) == want and raw[-1] == want
-    ok_oracle = all(e.plaintext == o for e, o in zip(enc_out, oracle))
-    ok_keys = all(e.pubkey == k_ for e, k_ in zip(enc_out, pk_out))
-    ok_rel = all(e.vector == s @ e.pubkey.matrix - s_g.mul_poly_scalar(o)
-                 for e, o in zip(enc_out, oracle))
     ok_shape = len(enc_out) == levels * k + 1 and all(
         e.vector.data.shape == (p.crt_depth, 1, p.modulus_digits, p.n) for e in enc_out)
-    torch.cuda.synchronize()
+    checks = [run[c] for c in ("ok_lift", "ok_lift_card", "ok_oracle", "ok_keys", "ok_rel")]
+    ms_pk, ms_enc = run["ms_pk"], run["ms_enc"]
     print(f"nested rns mul n={p.n} L={p.crt_depth} d=1, wide p-basis of {k} moduli below 2^8, "
           f"{len(values)} lifted inputs, {n_gates} gates ({n_lut} PubLut), {len(enc_out)} "
-          f"outputs: lifts == large_scalar_mul on wires {sample} {ok_lift}, lifted wires on the "
-          f"card {ok_lift_card}, outputs decode to x y mod Q {ok_decode}, plaintexts == oracle "
-          f"{ok_oracle}, encoding pubkeys == pubkey pass {ok_keys}, c == s A - pt (s G) "
-          f"{ok_rel}, shapes {ok_shape} (tolerance 0: exact); lift chunks of "
+          f"outputs: lifts == large_scalar_mul on wires {sample} {checks[0]}, lifted wires on "
+          f"the card {checks[1]}, outputs decode to x y mod Q {ok_decode}, plaintexts == oracle "
+          f"{checks[2]}, encoding pubkeys == pubkey pass {checks[3]}, c == s A - pt (s G) "
+          f"{checks[4]}, shapes {ok_shape} (tolerance 0: exact); lift chunks of "
           f"{lift_chunk_size(p, 1, False)} (pubkeys) and {lift_chunk_size(p, 1, True)} "
           f"(encodings) constants; live wires at most "
-          f"{max(st.peak_live_bytes for st in stores) / 2**30:.2f} GiB, "
-          f"{sum(st.spill_count for st in stores)} spilled; launches in the phase: fwd "
+          f"{max(st.peak_live_bytes for st in run['stores']) / 2**30:.2f} GiB, "
+          f"{sum(st.spill_count for st in run['stores'])} spilled; launches in the phase: fwd "
           f"{counts['fwd']}, inv {counts['inv']}", flush=True)
-    timing("nested rns mul: lift onto public keys", len(values) / ms_lift_pk * 1e3,
-           "constants/s", f" ({ms_lift_pk:.1f} ms for {len(values)})")
-    timing("nested rns mul: lift onto encodings", len(values) / ms_lift_enc * 1e3,
-           "constants/s", f" ({ms_lift_enc:.1f} ms for {len(values)})")
+    timing("nested rns mul: lift onto public keys", len(values) / run["ms_lift_pk"] * 1e3,
+           "constants/s", f" ({run['ms_lift_pk']:.1f} ms for {len(values)})")
+    timing("nested rns mul: lift onto encodings", len(values) / run["ms_lift_enc"] * 1e3,
+           "constants/s", f" ({run['ms_lift_enc']:.1f} ms for {len(values)})")
     timing(f"nested rns mul: pubkey pass, batched, {n_gates} gates", n_gates / ms_pk * 1e3,
            "gates/s", f" ({ms_pk:.1f} ms)")
     timing(f"nested rns mul: encoding pass, batched, {n_gates} gates", n_gates / ms_enc * 1e3,
            "gates/s", f" ({ms_enc:.1f} ms)")
-    timing("nested rns mul: plaintext oracle, sequential", ms_oracle, "ms")
-    timing("nested rns mul: peak device memory of lifts and passes", peak / 2**30, "GiB")
-    if not all((ok_lift, ok_lift_card, ok_decode, ok_oracle, ok_keys, ok_rel, ok_shape)):
+    timing("nested rns mul: plaintext oracle, sequential", run["ms_oracle"], "ms")
+    timing("nested rns mul: peak device memory of lifts and passes", run["peak"] / 2**30, "GiB")
+    if not all(checks + [ok_decode, ok_shape]):
         raise SystemExit("chip_smoke: nested-RNS multiplication check failed")
     require_launches("nested rns mul", counts)
-    del enc_out, pk_out, oracle
+    if record is not None:
+        record.update(ms_pk=ms_pk, ms_enc=ms_enc, gates=n_gates, luts=n_lut)
+    one_pk, pk_in = run["one_pk"], run["pk_in"]
+    del run, enc_out
     profiled_stages("nested rns mul: pubkey pass, batched, profiled",
-                    lambda: eval_batched(circuit, p, one_pk[0], pk_in,
+                    lambda: eval_batched(circuit, p, one_pk, pk_in,
                                          DebugBGGPubKeyPltEvaluator(BGG_KEY)), timing)
     return counts
 
@@ -1370,6 +1431,57 @@ def dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
 
+class HostRssPeak:
+    """The host resident set over a `with` block: at its start and its peak,
+    in GiB, sampled every 10 ms by a background thread from /proc/self/statm
+    (a peak between two samples is missed). Where that file cannot be read,
+    both stay None. `note` adds the process's peak resident set so far
+    (`ru_maxrss`, which cannot be reset)."""
+
+    def __enter__(self):
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        if self.start is not None:
+            self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> float | None:
+        try:
+            pages = int(Path("/proc/self/statm").read_text().split()[1])
+        except (OSError, ValueError, IndexError):
+            return None
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss() or 0.0)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join()
+            self.peak = max(self.peak, self._rss() or 0.0)
+        return False
+
+    def note(self) -> str:
+        so_far = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+        if self.start is None:
+            return f"peak host RSS of the process so far {so_far:.2f} GiB (sampling not measured)"
+        return (f"host RSS {self.start:.2f} GiB at the pass's start, peak {self.peak:.2f} GiB over "
+                f"the pass and its barrier (sampled every 10 ms), peak of the process so far "
+                f"{so_far:.2f} GiB")
+
+
+def offline_host_note(rss: HostRssPeak, held: int, queued: int) -> str:
+    """The host side of an offline pass that wrote through the native
+    writer: its resident set, and how many queued files the writer still
+    held (unwritten, or written and not yet released) when the pass
+    returned, before the barrier."""
+    return f"{rss.note()}; files held by the writer when the pass returned {held} of {queued}"
+
+
 def drive_slot_transfer(p, dev, timing) -> dict:
     """Preimage-backed slot transfer over packed encodings (S = 3, d = 1):
     one slot transfer and one slot reduce of its output, the offline pass
@@ -1520,6 +1632,7 @@ def drive_ggh15_chain(p, dev, timing) -> dict:
     from mxx_tpu_torch.bgg.poly_encoding import BGGPolyEncodingSampler
     from mxx_tpu_torch.lookup import PolyPltEvaluator, ggh15
     from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.native import writer
     from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
@@ -1588,9 +1701,11 @@ def drive_ggh15_chain(p, dev, timing) -> dict:
         TrapdoorSampler.preimage_batched_chunked = recording_pre
         ggh15.store_matrix_chunked = recording_store
         try:
-            with SpanLog() as spans:
+            with SpanLog() as spans, HostRssPeak() as rss:
                 _, ms_aux = timed(lambda: pk_eval.sample_aux_matrices(p))
+                held = writer.held_files()
                 _, ms_wait = timed(wait_for_all_writes)
+            host_note = offline_host_note(rss, held, len(spans.events("storage.write_part")))
         finally:
             TrapdoorSampler.preimage_batched_chunked = inner_pre
             ggh15.store_matrix_chunked = inner_store
@@ -1657,7 +1772,6 @@ def drive_ggh15_chain(p, dev, timing) -> dict:
     span_cols = sum(r.fields["cols"] for r in spans.records
                     if getattr(r, "span", None) == "ggh15.preimages")
     writes = spans.events("storage.write_part")
-    write_ms = sum(w["elapsed_ms"] for w in writes)
     timing("ggh15 chain: plaintext oracle", ms_oracle, "ms")
     timing("ggh15 chain: pubkey pass", ms_pk, "ms")
     timing("ggh15 chain: sample_aux_matrices", ms_aux, "ms",
@@ -1672,8 +1786,8 @@ def drive_ggh15_chain(p, dev, timing) -> dict:
     timing("ggh15 chain: artifacts written", written / 1e9, "GB",
            f" ({written} B, reckoned {want_bytes} B of payloads; "
            f"{written / (ms_aux + ms_wait) / 1e6:.3f} GB/s over sample_aux_matrices + "
-           f"wait_for_all_writes; disk write summed over writer threads {write_ms:.1f} ms in "
-           f"{len(writes)} parts, {written / max(write_ms, 1e-9) / 1e6:.3f} GB/s per thread)")
+           f"wait_for_all_writes; {len(writes)} parts queued to the C++ writer without a copy; "
+           f"{host_note})")
     timing("ggh15 chain: online encoding pass", ms_on, "ms")
     timing(f"ggh15 chain: packed pass ({GGH15_SLOTS} slots)", ms_packed, "ms")
     timing("ggh15 chain: peak device memory", peak / 2**30, "GiB")
@@ -2212,12 +2326,449 @@ def drive_estimators(p, pd, dev, timing, we, fe, decode, dio) -> dict:
     return launches
 
 
+CORE_KEY = bytes([0x5A] * 32)
+CHUNK_KNOB = "MXX_MUL_DECOMPOSE_COLUMN_CHUNK_WIDTH"
+
+
+def chunked_mul_decompose(a, b, width: int):
+    """(a.mul_decompose(b), ms, peak bytes above those allocated before the
+    call) under the column-chunk width `width` (0: G^-1(b) whole), the knob
+    restored after."""
+    import os
+
+    import torch
+
+    saved = os.environ.get(CHUNK_KNOB)
+    os.environ[CHUNK_KNOB] = str(width)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out, ms = timed(lambda: a.mul_decompose(b))
+        return out, ms, torch.cuda.max_memory_allocated() - before
+    finally:
+        if saved is None:
+            os.environ.pop(CHUNK_KNOB)
+        else:
+            os.environ[CHUNK_KNOB] = saved
+
+
+def drive_core_ops(p, dev, timing) -> dict:
+    """The matrix, poly, sampler and serde operations of slice 10 at the
+    realistic ring, each checked exactly. Returns the K1/K2 launch counts."""
+    import random
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.matrix.poly_matrix import host_u32
+    from mxx_tpu_torch.native import codec
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import COEFF, Poly
+    from mxx_tpu_torch.sampler import FinRingDist, HashSampler, UniformSampler
+
+    us = UniformSampler(seed=191, device=dev)
+    uni = FinRingDist()
+    k, dpt = p.modulus_digits, p.digits_per_tower
+    a = us.sample_uniform(p, 2, 2 * k, uni).to_eval()
+    b = us.sample_uniform(p, 2, 512, uni).to_eval()
+    torch.cuda.synchronize()
+    four_step.launches.update(fwd=0, inv=0)
+
+    # mul_decompose, whole and in column chunks of 64
+    whole, ms_whole, peak_whole = chunked_mul_decompose(a, b, 0)
+    chunks, ms_chunks, peak_chunks = chunked_mul_decompose(a, b, 64)
+    ok_chunks = whole == chunks
+    del whole, chunks
+    head = b.slice_columns(0, 64)
+    ok_gadget = PolyMatrix.gadget_matrix(p, 2, dev) @ head.decompose() == head
+    del a, b, head
+
+    # small gadget and decomposition, on entries below every q_t
+    g = torch.Generator(device=dev).manual_seed(192)
+    small = torch.randint(0, min(p.moduli), (2, 4, p.n), generator=g, device=dev)
+    m_small = PolyMatrix(small[None].expand(p.crt_depth, 2, 4, p.n).contiguous(), COEFF, p)
+    g_small = PolyMatrix.small_gadget_matrix(p, 2, dev)
+    dec_small = m_small.small_decompose()
+    ok_small = (dec_small.shape == (2 * dpt, 4) and g_small @ dec_small == m_small
+                and g_small.mul_decompose_small(m_small) == m_small)
+
+    # tensor-identity products against the materialized I_4 x other
+    other = us.sample_uniform(p, 2, 3, uni)
+    ident = PolyMatrix.identity(p, 4, device=dev)
+    t = us.sample_uniform(p, 1, 8, uni)
+    u = us.sample_uniform(p, 1, 4 * 2 * k, uni)
+    ok_tensor = (t.mul_tensor_identity(other, 4) == t @ ident.tensor(other)
+                 and u.mul_tensor_identity_decompose(other, 4)
+                 == u @ ident.tensor(other.decompose()))
+    x, y = us.sample_uniform(p, 2, 2, uni), us.sample_uniform(p, 1, 3, uni)
+    diag = x.concat_diag([y])
+    ok_diag = (diag.shape == (3, 5) and diag.slice(0, 2, 0, 2) == x
+               and diag.slice(2, 3, 2, 5) == y
+               and not diag.slice(0, 2, 2, 5).data.any() and not diag.slice(2, 3, 0, 2).data.any())
+    del other, ident, t, u, x, y, diag
+
+    # hash-decomposed samplers against the decompositions of sample_hash
+    hs = HashSampler(device=dev)
+    full = hs.sample_hash(p, CORE_KEY, "core", 2, 16, uni)
+    ok_hash = (hs.sample_hash_decomposed(p, CORE_KEY, "core", 2, 16, uni) == full.decompose()
+               and hs.sample_hash_decomposed_columns(p, CORE_KEY, "core", 2, 16, 4, 8, uni)
+               == full.slice_columns(4, 12).decompose()
+               and hs.sample_hash_small_decomposed(p, CORE_KEY, "core", 2, 16, uni)
+               == full.small_decompose())
+    del full
+
+    # Poly round trips
+    rng = random.Random(193)
+    q = p.modulus
+    slots = [rng.randrange(q) for _ in range(p.n)]
+    pe = Poly.from_ints_eval(p, slots, dev)
+    ok_slots = pe.eval_slots() == slots
+    digits = pe.decompose_base()
+    ok_digits = (len(digits) == k and p.modulus_digits * p.base_bits >= p.modulus_bits
+                 and Poly.from_decomposed(p, digits) == pe)
+    bits = [rng.random() < 0.5 for _ in range(p.n)]
+    half = Poly.from_int_coeffs(p, [q // 2 * bit for bit in bits], dev).to_eval()
+    ok_bits = half.extract_bits_with_threshold() == bits
+
+    # packed bytes of the LWE chain's K_high shape, and files
+    m = us.sample_uniform(p, 18, 16, uni)
+    compact = m.to_compact_bytes()
+    packed, ms_pack = timed(m.to_packed_bytes)
+    back, ms_unpack = timed(lambda: PolyMatrix.from_packed_bytes(p, packed, dev))
+    ok_packed = back == m and len(packed) == 25 + codec.packed_size(m.data.numel(), p.crt_bits)
+    ok_card = back.data.is_cuda and pe.data.is_cuda and dec_small.data.is_cuda
+    host, ms_copy = timed(lambda: host_u32(m.data))
+    _, ms_codec = timed(lambda: codec.pack_u32(host, p.crt_bits))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_core_") as tmp:
+        pe.write_to_file(tmp, "pe")
+        m.write_to_file(tmp, "m")
+        ok_files = (Poly.read_from_file(p, tmp, "pe", dev) == pe
+                    and PolyMatrix.read_from_file(p, tmp, "m", dev) == m)
+    torch.cuda.synchronize()
+    counts = dict(four_step.launches)
+    del back, m, host, pe, digits, half
+
+    checks = dict(chunks=ok_chunks, gadget=ok_gadget, small=ok_small, tensor=ok_tensor,
+                  diag=ok_diag, hash=ok_hash, slots=ok_slots, digits=ok_digits, bits=ok_bits,
+                  packed=ok_packed, files=ok_files, card=ok_card)
+    gb = len(compact) / 1e6
+    print(f"core ops n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits {p.base_bits}: "
+          f"mul_decompose [2, {2 * k}] x G^-1([2, 512]) whole == in chunks of 64 columns "
+          f"{ok_chunks}, G G^-1(B) == B {ok_gadget}; small gadget G_s small_G^-1(M) == M and "
+          f"mul_decompose_small {ok_small}; mul_tensor_identity(_decompose) == the product "
+          f"with I_4 x other {ok_tensor}; concat_diag {ok_diag}; hash-decomposed samplers == "
+          f"(small) decompositions of sample_hash {ok_hash}; from_ints_eval/eval_slots "
+          f"{ok_slots}, decompose_base/from_decomposed {ok_digits}, "
+          f"extract_bits_with_threshold {ok_bits}; packed bytes of [18, 16] round trip "
+          f"{ok_packed} ({len(compact)} B compact, {len(packed)} B packed, ratio "
+          f"{len(compact) / len(packed):.4f}); .mxxp/.mxxm files {ok_files} (tolerance 0: "
+          f"exact); results on the card {ok_card}; launches in the phase: fwd "
+          f"{counts['fwd']}, inv {counts['inv']}",
+          flush=True)
+    timing("core ops: mul_decompose [2, 32] x [2, 512], G^-1 whole", ms_whole, "ms",
+           f" (peak {peak_whole / 2**30:.2f} GiB above the allocation before the call)")
+    timing("core ops: mul_decompose [2, 32] x [2, 512], chunks of 64 columns", ms_chunks, "ms",
+           f" (peak {peak_chunks / 2**30:.2f} GiB above the allocation before the call)")
+    timing("core ops: to_packed_bytes [18, 16] (narrow on the card, copy, pack)",
+           gb / ms_pack, "GB/s", f" ({ms_pack:.1f} ms for {len(compact)} B of residues; "
+           f"narrow + copy alone {ms_copy:.1f} ms, the codec alone {gb / ms_codec:.3f} GB/s, "
+           f"{ms_codec:.1f} ms)")
+    timing("core ops: from_packed_bytes [18, 16] (unpack, copy, widen on the card)",
+           gb / ms_unpack, "GB/s", f" ({ms_unpack:.1f} ms)")
+    if not all(checks.values()):
+        raise SystemExit(f"chip_smoke: core ops check failed: "
+                         f"{[name for name, ok in checks.items() if not ok]}")
+    require_launches("core ops", counts)
+    return counts
+
+
+# scale^2 / (the dropped 28-bit modulus) must dwarf the rescale's error
+# bound: the JAX tests' 2^17 leaves 2^6 at these moduli and misses the
+# product by more than 1 (tests/test_torch_ckks.py,
+# test_rescale_error_within_its_bound). The scale enters only the host
+# encrypt and decrypt: the circuit is the same
+CKKS_SCALE = 1 << 24
+CKKS_MESSAGES = (3, 5)
+
+
+def drive_ckks(p, dev, timing, nested: dict) -> dict:
+    """One CKKS multiplication, relinearization and rescale at the realistic
+    ring, built, saved with `save_circuit`, loaded with `load_circuit` and
+    evaluated over constant polys (the JAX tests' mode) on the card; the
+    BGG+ sizing that keeps it off BGG+ wires, from the nested phase's
+    measured pass time (`nested`). Returns the K1/K2 launch counts."""
+    import random
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.circuit.batched_eval import eval_batched
+    from mxx_tpu_torch.circuit.serde import circuit_to_json, load_circuit, save_circuit
+    from mxx_tpu_torch.gadgets.arith import decode_nested_rns_outputs, encode_nested_rns_value
+    from mxx_tpu_torch.gadgets.fhe.ckks import (
+        CKKSCiphertext,
+        CKKSContext,
+        decrypt,
+        encrypt,
+        sample_relinearization_eval_keys,
+    )
+    from mxx_tpu_torch.lookup import PolyPltEvaluator
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.poly import Poly
+
+    def build():
+        circuit = PolyCircuit()
+        ctx = CKKSContext(circuit, p, 8, max_unreduced_muls=2, scale=CKKS_SCALE,
+                          relinearization_extra_levels=1)
+        w1 = CKKSCiphertext.input(ctx, circuit)
+        w2 = CKKSCiphertext.input(ctx, circuit)
+        ek = CKKSCiphertext.alloc_eval_keys(ctx, circuit)
+        prod = w1.mul(w2, ek, circuit)
+        scaled = prod.rescale(circuit)
+        circuit.output(prod.flatten() + scaled.flatten())
+        return circuit, ctx, prod, scaled
+
+    (circuit, ctx, prod, scaled), ms_build = timed(build)
+    kinds = circuit.gate_counts()
+    n_gates = len(circuit.gates)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckks_") as tmp:
+        path = Path(tmp) / "ckks_mul.json"
+        _, ms_save = timed(lambda: save_circuit(circuit, path))
+        raw = circuit_to_json(circuit)
+        size = path.stat().st_size
+        loaded, ms_load = timed(lambda: load_circuit(path))
+    ok_json = circuit_to_json(loaded) == raw and len(loaded.gates) == n_gates
+    loaded.luts.update(circuit.luts)  # the JSON carries LUT ids, not tables
+
+    rng = random.Random(71)
+    s = 2
+    m1, m2 = CKKS_MESSAGES
+    cts = [encrypt(ctx, s, m, rng) for m in (m1, m2)]
+    ek_vals = sample_relinearization_eval_keys(ctx, s, rng)
+    off, levels, full = ctx.level_offset, ctx.max_active_levels, ctx.nested.q_moduli_depth
+    values = [r for ct in cts for v in ct for row in encode_nested_rns_value(
+        ctx.nested, v, off, levels) for r in row]
+    values += [r for v in ek_vals for row in encode_nested_rns_value(ctx.nested, v, 0, full)
+               for r in row]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    four_step.launches.update(fwd=0, inv=0)
+    inputs = [Poly.const(p, v, dev) for v in values]
+    outs, ms_eval = timed(lambda: eval_batched(loaded, p, Poly.one(p, dev), inputs,
+                                               PolyPltEvaluator()))
+    del inputs
+    peak = torch.cuda.max_memory_allocated()
+    ok_card = all(o.data.is_cuda for o in outs)
+    out_vals, ms_decode = timed(lambda: [o.const_coeff() for o in outs])
+    counts = dict(four_step.launches)
+    del outs
+
+    k = ctx.nested.k
+
+    def ciphertext(pos, lv):
+        comps = []
+        for _ in range(2):
+            rows = [out_vals[pos + i * k:pos + (i + 1) * k] for i in range(lv)]
+            comps.append(decode_nested_rns_outputs(ctx.nested, rows, off, lv))
+            pos += lv * k
+        return comps, pos
+
+    (c0p, c1p), pos = ciphertext(0, prod.active_levels)
+    (c0r, c1r), pos = ciphertext(pos, scaled.active_levels)
+    removed = ctx.nested.q_moduli[off + prod.active_levels - 1]
+    got_prod = decrypt(ctx, s, c0p, c1p, prod.active_levels, scale=CKKS_SCALE**2)
+    got_rescaled = decrypt(ctx, s, c0r, c1r, scaled.active_levels,
+                           scale=CKKS_SCALE**2 / removed)
+    ok_prod = abs(got_prod - m1 * m2) < 0.1
+    ok_rescaled = abs(got_rescaled - m1 * m2) < 0.1
+    ok_count = pos == len(out_vals) == len(loaded.output_ids)
+
+    # what the same circuit would take over BGG+ wires (d=1): one encoding
+    # vector of k polys per wire, and one A_LT per LUT gate at the nested
+    # phase's measured rate
+    n_inputs = kinds.get("Input", 0)
+    n_lut = kinds.get("PubLut", 0)
+    wire = p.modulus_digits * p.crt_depth * p.n * 8
+    per_lut_ms = nested["ms_pk"] / nested["luts"]
+    print(f"ckks n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits {p.base_bits}, p-moduli "
+          f"below 2^8 (k = {k}), scale 2^{CKKS_SCALE.bit_length() - 1}, {levels} active levels "
+          f"+ {ctx.relin_extra} relinearization level: mul + relinearize + rescale, {n_gates} "
+          f"gates {kinds}; JSON {size} B, load(save(c)) == c {ok_json}; the loaded circuit over "
+          f"{len(values)} constant inputs on the card {ok_card}: decrypted product "
+          f"{got_prod:.6f} within 0.1 of {m1 * m2} {ok_prod}, rescaled {got_rescaled:.6f} "
+          f"{ok_rescaled}, {len(out_vals)} outputs {ok_count}; launches in the phase: fwd "
+          f"{counts['fwd']}, inv {counts['inv']}", flush=True)
+    print(f"ckks over BGG+ wires (not run): {n_inputs} inputs x {wire / 1e6:.2f} MB per "
+          f"encoding vector = {n_inputs * wire / 1e9:.2f} GB, {n_lut} A_LT; at the nested rns "
+          f"phase's {per_lut_ms:.2f} ms per LUT gate ({nested['luts']} PubLut in a "
+          f"{nested['ms_pk'] / 1e3:.2f} s pubkey pass) one pubkey pass projects to "
+          f"{n_lut * per_lut_ms / 1e3:.1f} s", flush=True)
+    timing(f"ckks: build ({n_gates} gates)", ms_build, "ms")
+    timing("ckks: save_circuit", ms_save, "ms", f" ({size} B)")
+    timing("ckks: load_circuit", ms_load, "ms")
+    timing("ckks: eval of the loaded circuit over constant polys", n_gates / ms_eval * 1e3,
+           "gates/s", f" ({ms_eval:.1f} ms; decode {ms_decode:.1f} ms)")
+    timing("ckks: peak device memory of the inputs and the eval", (peak - before) / 2**30,
+           "GiB", f" above the {before / 2**30:.2f} GiB allocated before them")
+    if not all((ok_json, ok_card, ok_prod, ok_rescaled, ok_count)):
+        raise SystemExit("chip_smoke: CKKS check failed")
+    require_launches("ckks", counts)
+    return counts
+
+
+MONT_MODULUS = 64513  # odd, below 2^16: tests/test_carry_montgomery.py's
+
+
+def drive_montgomery(p, dev, timing) -> dict:
+    """One Montgomery multiplication mod 64513 (4 limbs of 4 bits) over BGG+
+    public keys and encodings lifted from the one wire, through
+    `lifted_passes`. Returns the K1/K2 launch counts."""
+    import random
+
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.gadgets.arith import CarryArithContext, CarryArithPoly, MontgomeryContext
+
+    circuit = PolyCircuit()
+    ctx = CarryArithContext(circuit, p, 4, 4)
+    mont = MontgomeryContext(ctx, MONT_MODULUS)
+    a = CarryArithPoly.input(ctx, circuit)
+    b = CarryArithPoly.input(ctx, circuit)
+    prod = mont.mont_mul(a, b, circuit)
+    circuit.output(prod.limbs)
+    kinds = circuit.gate_counts()
+    n_gates = sum(v for g, v in kinds.items() if g != "Input")
+    rng = random.Random(13)
+    x, y = rng.randrange(MONT_MODULUS), rng.randrange(MONT_MODULUS)
+    xm, ym = mont.to_mont_value(x), mont.to_mont_value(y)
+    values = CarryArithPoly.encode(ctx, xm) + CarryArithPoly.encode(ctx, ym)
+    run = lifted_passes(p, dev, circuit, values, b"montgomery", 201)
+    counts = run["counts"]
+    got = CarryArithPoly.decode(ctx, [e.plaintext.const_value() for e in run["enc_out"]])
+    ok_inputs = (CarryArithPoly.decode(ctx, values[:4]) == x * mont.r % MONT_MODULUS
+                 and CarryArithPoly.decode(ctx, values[4:]) == y * mont.r % MONT_MODULUS)
+    ok_out = got < 2 * MONT_MODULUS and mont.from_mont_value(got % MONT_MODULUS) == (
+        x * y % MONT_MODULUS)
+    checks = [run[c] for c in ("ok_lift", "ok_lift_card", "ok_oracle", "ok_keys", "ok_rel")]
+    ms_pk, ms_enc = run["ms_pk"], run["ms_enc"]
+    print(f"montgomery n={p.n} L={p.crt_depth} d=1 mod {MONT_MODULUS}, 4 limbs of 4 bits "
+          f"(R = 2^16): {n_gates} gates {kinds}; inputs are the Montgomery forms of x={x}, "
+          f"y={y} {ok_inputs}; output {got} converts back to x y mod N = "
+          f"{x * y % MONT_MODULUS} {ok_out}; lifts == large_scalar_mul {checks[0]}, on the card "
+          f"{checks[1]}, plaintexts == oracle {checks[2]}, encoding pubkeys == pubkey pass "
+          f"{checks[3]}, c == s A - pt (s G) {checks[4]} (tolerance 0: exact); launches in the "
+          f"phase: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
+    timing(f"montgomery: pubkey pass, batched, {n_gates} gates", n_gates / ms_pk * 1e3,
+           "gates/s", f" ({ms_pk:.1f} ms)")
+    timing(f"montgomery: encoding pass, batched, {n_gates} gates", n_gates / ms_enc * 1e3,
+           "gates/s", f" ({ms_enc:.1f} ms)")
+    timing("montgomery: peak device memory of lifts and passes", run["peak"] / 2**30, "GiB")
+    if not all(checks + [ok_inputs, ok_out]):
+        raise SystemExit("chip_smoke: Montgomery multiplication check failed")
+    require_launches("montgomery", counts)
+    return counts
+
+
+NTT_SLOTS = 8
+NTT_P = 17  # 1 mod 16
+
+
+def host_ntt(vals, prime, inverse=False):
+    """The negacyclic NTT mod `prime` in the ring's order (natural ->
+    bit-reversed forward; the inverse with n^-1), on Python ints."""
+    from mxx_tpu_torch.utils import numth
+
+    n = len(vals)
+    psi = numth.find_primitive_2n_root(prime, n)
+    if inverse:
+        psi = numth.modinv(psi, prime)
+    ln = n.bit_length() - 1
+    table = [pow(psi, numth.bit_reverse(i, ln), prime) for i in range(n)]
+    x = list(vals)
+    if not inverse:
+        m, t = 1, n
+        while m < n:
+            t //= 2
+            for i in range(m):
+                for j in range(2 * i * t, 2 * i * t + t):
+                    u, v = x[j], x[j + t] * table[m + i] % prime
+                    x[j], x[j + t] = (u + v) % prime, (u - v) % prime
+            m *= 2
+        return x
+    t, m = 1, n
+    while m > 1:
+        h = m // 2
+        for i in range(h):
+            for j in range(2 * i * t, 2 * i * t + t):
+                u, v = x[j], x[j + t]
+                x[j], x[j + t] = (u + v) % prime, (u - v) * table[h + i] % prime
+        t *= 2
+        m = h
+    n_inv = numth.modinv(n, prime)
+    return [v * n_inv % prime for v in x]
+
+
+def drive_ntt_circuit(p, dev, timing) -> dict:
+    """`forward_ntt` then `inverse_ntt` over 8 packed slots mod 17 at the
+    realistic ring, over `PolyVec` plaintexts on the card. Returns the K1/K2
+    launch counts."""
+    import random
+
+    import torch
+
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.circuit.batched_eval import eval_batched
+    from mxx_tpu_torch.circuit.poly_vec import PolyVec
+    from mxx_tpu_torch.gadgets.ntt_circuit import forward_ntt, inverse_ntt, register_mod_p_lut
+    from mxx_tpu_torch.lookup.vec_eval import PolyVecPltEvaluator
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.slot_transfer import PolyVecSlotTransferEvaluator
+
+    circuit = PolyCircuit()
+    (w,) = circuit.input(1)
+    lut = register_mod_p_lut(circuit, p, NTT_P, 2 * NTT_P * NTT_P)
+    fwd = forward_ntt(circuit, w, NTT_SLOTS, NTT_P, lut)
+    back = inverse_ntt(circuit, fwd, NTT_SLOTS, NTT_P, lut)
+    circuit.output([fwd, back])
+    kinds = circuit.gate_counts()
+    rng = random.Random(12)
+    vals = [rng.randrange(NTT_P) for _ in range(NTT_SLOTS)]
+    torch.cuda.synchronize()
+    four_step.launches.update(fwd=0, inv=0)
+    outs, ms = timed(lambda: eval_batched(
+        circuit, p, PolyVec.const(p, [1] * NTT_SLOTS, dev), [PolyVec.const(p, vals, dev)],
+        PolyVecPltEvaluator(), PolyVecSlotTransferEvaluator()))
+    ok_card = all(x.data.is_cuda for o in outs for x in o.slots)
+    got = [[x.const_coeff() for x in o.slots] for o in outs]
+    counts = dict(four_step.launches)
+    want = host_ntt(vals, NTT_P)
+    ok_fwd, ok_back = got[0] == want, got[1] == vals
+    ok_host = host_ntt(want, NTT_P, inverse=True) == vals
+    print(f"ntt circuit n={p.n} L={p.crt_depth}, {NTT_SLOTS} packed slots mod {NTT_P}: "
+          f"{kinds}; input {vals}: forward {got[0]} == host NTT mod {NTT_P} {want} {ok_fwd}, "
+          f"inverse(forward) == input {ok_back} (host inverse {ok_host}), on the card "
+          f"{ok_card} (tolerance 0: exact); launches in the phase: fwd {counts['fwd']}, inv "
+          f"{counts['inv']}", flush=True)
+    timing(f"ntt circuit: forward + inverse over {NTT_SLOTS} slots", ms, "ms")
+    if not all((ok_fwd, ok_back, ok_host, ok_card)):
+        raise SystemExit("chip_smoke: in-circuit NTT check failed")
+    require_launches("ntt circuit", counts)
+    return counts
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mxx_tpu_torch.native import codec, writer
     from mxx_tpu_torch.ops import four_step, hybrid_ntt
     from mxx_tpu_torch.ring import ntt
     from mxx_tpu_torch.ring.params import RingParams
@@ -2233,8 +2784,8 @@ def main() -> None:
 
     shapes = [("A", (8192, 8, 28, 14), 512), ("B", (16384, 10, 24, 12), 64)]
 
-    # 1. build
-    build_kernels([four_step, hybrid_ntt])
+    # 1. build (the CUDA kernels with nvcc, the host codec and writer with g++)
+    build_kernels([four_step, hybrid_ntt, codec, writer])
 
     # 2. K1 and K2 against the radix chain and the plain four-step
     check_four_step(dev, shapes + [("C", (16384, 10, 24, 12), 1000)])
@@ -2290,7 +2841,8 @@ def main() -> None:
 
     # 10. one nested-RNS multiplication over lifted BGG+ wires
     p = RingParams.new(8192, 8, 28, 14)
-    nested_counts = drive_nested_rns_mul(p, dev, timing)
+    nested_run: dict = {}
+    nested_counts = drive_nested_rns_mul(p, dev, timing, nested_run)
     torch.cuda.empty_cache()
 
     # 11-12. the noise refresh and the masked decoder, on one trapdoor
@@ -2328,7 +2880,23 @@ def main() -> None:
     del we, fe, decode, dio
     torch.cuda.empty_cache()
 
-    # 19. timings
+    # 19. slice 10's matrix, poly, sampler and serde operations
+    core_counts = drive_core_ops(p, dev, timing)
+    torch.cuda.empty_cache()
+
+    # 20. CKKS mul + relinearize + rescale: built, saved, loaded, evaluated
+    ckks_counts = drive_ckks(p, dev, timing, nested_run)
+    torch.cuda.empty_cache()
+
+    # 21. a Montgomery multiplication over lifted BGG+ wires
+    mont_counts = drive_montgomery(p, dev, timing)
+    torch.cuda.empty_cache()
+
+    # 22. the in-circuit NTT over packed slots
+    nttc_counts = drive_ntt_circuit(p, dev, timing)
+    torch.cuda.empty_cache()
+
+    # 23. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -2393,7 +2961,9 @@ def main() -> None:
                    "noise refresh": refresh_counts[d], "masked decode": decode_counts[d],
                    "slot transfer": st_counts[d], "ggh15 chain": ggh15_counts[d],
                    "commit lut": commit_counts[d], "diamond io": dio_counts[d],
-                   "estimators": est_counts[d]}
+                   "estimators": est_counts[d], "core ops": core_counts[d],
+                   "ckks": ckks_counts[d], "montgomery": mont_counts[d],
+                   "ntt circuit": nttc_counts[d]}
                for d in ("fwd", "inv")}
     cases = [
         ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",

@@ -1,6 +1,6 @@
 """Environment-variable configuration: the knobs of the circuit evaluator,
-the LUT path and the artifact store, copied from `mxx_tpu/config.py` with the
-same variable names and defaults."""
+the matrix layer, the LUT path and the artifact store, copied from
+`mxx_tpu/config.py` with the same variable names and defaults."""
 
 from __future__ import annotations
 
@@ -26,6 +26,12 @@ def lut_preimage_chunk_size() -> int:
 def aux_sampling_chunk_width() -> int:
     """Column width of the chunks a stored GGH15 preimage is split into."""
     return _env_int("AUX_SAMPLING_CHUNK_WIDTH", 1 << 12)
+
+
+def mul_decompose_column_chunk_width() -> int:
+    """Column width of the chunks `PolyMatrix.mul_decompose` decomposes and
+    multiplies one at a time; 0 = no chunking."""
+    return _env_int("MXX_MUL_DECOMPOSE_COLUMN_CHUNK_WIDTH", 0)
 
 
 def lut_bytes_limit() -> int:

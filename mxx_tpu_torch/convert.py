@@ -7,7 +7,9 @@ keys, encodings and secrets, a Diamond injector's final checkpoints, Diamond
 WE ciphertexts, the AKY24 FE keys and ciphertexts, a noise refresher's
 material, packed and vec BGG+ wires, Diamond iO obfuscations and WEE25
 public params. Artifact files need no bridge: both packages write the same
-bytes (a GGH15 chain's trapdoors too, as compact bytes). Native GSW
+bytes (a GGH15 chain's trapdoors too, as compact bytes; matrices also as
+packed bytes and `.mxxm`/`.mxxp` files; circuits as the serde JSON of
+`circuit.serde`, whose LUT tables the caller registers again). Native GSW
 ciphertexts are Python ints and cross as they are.
 """
 

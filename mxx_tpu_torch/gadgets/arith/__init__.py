@@ -5,3 +5,8 @@ from .nested_rns import (  # noqa: F401
     encode_nested_rns_value,
     sample_crt_primes,
 )
+from .carry_montgomery import (  # noqa: F401
+    CarryArithContext,
+    CarryArithPoly,
+    MontgomeryContext,
+)

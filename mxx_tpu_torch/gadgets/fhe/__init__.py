@@ -6,3 +6,7 @@ from .ring_gsw import (  # noqa: F401
     native_gadget_row,
     sample_secret_key,
 )
+from .ckks import (  # noqa: F401
+    CKKSCiphertext,
+    CKKSContext,
+)

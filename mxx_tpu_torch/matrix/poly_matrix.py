@@ -1,21 +1,26 @@
 """Polynomial-matrix algebra over the DCRT ring: int64[L, r, c, n] tensors.
 
 The port's counterpart of `mxx_tpu/matrix/poly_matrix.py`: block algebra,
-gadget matrix, G^{-1} decomposition, concat/slice/transpose, the Kronecker
-product, the exact eval-domain matmul, modulus switching and the compact
-bytes of the JAX package (uint32 residues after a 25-byte header).
-Out-of-core matrices are in `offload.py`. The packed bytes and the
-tensor-identity products are not ported yet.
+the gadget and small gadget matrices, G^{-1} decomposition (full and
+per-tower "small"), concat/slice/transpose, the Kronecker and
+tensor-identity products, the exact eval-domain matmul, modulus switching,
+and the JAX package's bytes: compact (uint32 residues after a 25-byte
+header), packed (crt_bits bits per residue through the host codec, `MXPK`)
+and `.mxxm` files. Residues are narrowed to 32 bits on the device before
+they are copied to the host. Out-of-core matrices are in `offload.py`.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import config
+from ..native import pack_u32, unpack_u32
 from ..ops.decompose import digit_decompose
 from ..ops.elementwise import ew_add, ew_mul, ew_mul_const, ew_neg, ew_sub
 from ..ops.zq_matmul import zq_matmul
@@ -25,15 +30,35 @@ from ..ring.params import RingParams
 from ..ring.poly import COEFF, EVAL, Poly, residues_from_int
 
 _MAGIC = b"MXTM"
+_PACKED_MAGIC = b"MXPK"
 
 
-def compact_header(params: RingParams, fmt: str, nrow: int, ncol: int) -> bytes:
-    """The 25-byte header of a matrix's compact bytes; uint32 residues
-    [L, nrow, ncol, n] follow it."""
-    return _MAGIC + struct.pack(
+def compact_header(params: RingParams, fmt: str, nrow: int, ncol: int,
+                   magic: bytes = _MAGIC) -> bytes:
+    """The 25-byte header of a matrix's compact bytes (uint32 residues
+    [L, nrow, ncol, n] follow it) or, with the `MXPK` magic, of its packed
+    bytes (crt_bits bits per residue follow it)."""
+    return magic + struct.pack(
         "<BBIIIIHB", 1, 0 if fmt == COEFF else 1, nrow, ncol, params.n, params.crt_depth,
         params.crt_bits, params.base_bits,
     )
+
+
+def _parse_header(params: RingParams, raw, magic: bytes) -> tuple:
+    """(fmt, nrow, ncol, crt_bits) of a 25-byte header, checked against params."""
+    if bytes(raw[:4]) != magic:
+        raise ValueError(f"bad matrix magic {bytes(raw[:4])!r}, want {magic!r}")
+    ver, fmt_i, nrow, ncol, n, depth, crt_bits, _base_bits = struct.unpack(
+        "<BBIIIIHB", raw[4:25])
+    if ver != 1 or n != params.n or depth != params.crt_depth:
+        raise ValueError(f"matrix bytes v{ver} n={n} L={depth} do not match {params}")
+    return COEFF if fmt_i == 0 else EVAL, nrow, ncol, crt_bits
+
+
+def host_u32(data: torch.Tensor) -> np.ndarray:
+    """Residue planes as a host uint32 array: narrowed to 32 bits on their
+    device (residues are below 2^31), then copied."""
+    return data.to(torch.int32).cpu().numpy().view(np.uint32)
 
 
 @dataclass(frozen=True)
@@ -122,6 +147,17 @@ class PolyMatrix:
             cache[key] = PolyMatrix(data, EVAL, params)
         return cache[key]
 
+    @staticmethod
+    def small_gadget_matrix(params: RingParams, size: int, device="cuda") -> "PolyMatrix":
+        """I_size tensor (1, b, ..., b^{dpt-1}) of constant polys (EVAL form)."""
+        dpt = params.digits_per_tower
+        gv = torch.from_numpy(params.np_small_gadget_res.astype(np.int64)).to(device)  # [dpt, L]
+        eye = torch.eye(size, dtype=torch.int64, device=device)
+        out = (eye[None, :, :, None] * gv.T[:, None, None, :]).reshape(
+            params.crt_depth, size, size * dpt)
+        return PolyMatrix(out[..., None].expand(out.shape + (params.n,)).contiguous(), EVAL,
+                          params)
+
     # ------------------------------------------------------------- shape ops
 
     @property
@@ -132,12 +168,27 @@ class PolyMatrix:
     def ncol(self) -> int:
         return self.data.shape[2]
 
+    def row_size(self) -> int:
+        return self.nrow
+
+    def col_size(self) -> int:
+        return self.ncol
+
     @property
     def shape(self) -> tuple[int, int]:
         return (self.nrow, self.ncol)
 
     def entry(self, i: int, j: int) -> Poly:
         return Poly(self.data[:, i, j, :], self.fmt, self.params)
+
+    def get_row(self, i: int) -> list[Poly]:
+        return [self.entry(i, j) for j in range(self.ncol)]
+
+    def get_column(self, j: int) -> list[Poly]:
+        return [self.entry(i, j) for i in range(self.nrow)]
+
+    def block_entries(self, rows: range, cols: range) -> list[list[Poly]]:
+        return [[self.entry(i, j) for j in cols] for i in rows]
 
     def slice(self, row_start: int, row_end: int, col_start: int, col_end: int) -> "PolyMatrix":
         return PolyMatrix(
@@ -172,6 +223,19 @@ class PolyMatrix:
         mats = [self] + list(others)
         datas = [m._convert(self.fmt).data for m in mats]
         return PolyMatrix(torch.cat(datas, dim=1), self.fmt, self.params)
+
+    def concat_diag(self, others: list["PolyMatrix"]) -> "PolyMatrix":
+        """Block-diagonal matrix of self and others (zero off the blocks)."""
+        mats = [self] + list(others)
+        p = self.params
+        data = torch.zeros((p.crt_depth, sum(m.nrow for m in mats), sum(m.ncol for m in mats),
+                            p.n), dtype=torch.int64, device=self.data.device)
+        r0 = c0 = 0
+        for m in mats:
+            data[:, r0 : r0 + m.nrow, c0 : c0 + m.ncol, :] = m._convert(self.fmt).data
+            r0 += m.nrow
+            c0 += m.ncol
+        return PolyMatrix(data, self.fmt, p)
 
     # --------------------------------------------------------------- format
 
@@ -253,31 +317,70 @@ class PolyMatrix:
 
     # --------------------------------------------------------- decomposition
 
-    def decompose(self) -> "PolyMatrix":
-        """G^{-1}: [r, c] -> [r*k, c] with per-tower digits."""
+    def _digits(self, towers: int) -> "PolyMatrix":
         p = self.params
         data = self.to_coeff().data
         t = p.tables(data.device)
-        out = digit_decompose(
-            data,
-            t.moduli,
-            t.digit_masks,
-            base_bits=p.base_bits,
-            dpt=p.digits_per_tower,
-            towers=p.crt_depth,
-        )
+        out = digit_decompose(data, t.moduli, t.digit_masks, base_bits=p.base_bits,
+                              dpt=p.digits_per_tower, towers=towers)
         return PolyMatrix(out, COEFF, p)
+
+    def decompose(self) -> "PolyMatrix":
+        """G^{-1}: [r, c] -> [r*k, c] with per-tower digits."""
+        return self._digits(self.params.crt_depth)
+
+    def small_decompose(self) -> "PolyMatrix":
+        """Per-tower G^{-1} for small-norm entries: [r, c] -> [r*dpt, c] (the
+        digits of the first tower's residue, which is the entry itself when
+        it lies below every q_t)."""
+        return self._digits(1)
 
     def get_column_matrix_decompose(self, j: int) -> "PolyMatrix":
         """G^{-1} of column j: [r, 1] -> [r*k, 1]."""
         return self.slice_columns(j, j + 1).decompose()
 
     def mul_decompose(self, other: "PolyMatrix") -> "PolyMatrix":
-        """self @ G^{-1}(other): self [*, d*k], other [d, m] -> [*, m]."""
+        """self @ G^{-1}(other): self [*, d*k], other [d, m] -> [*, m].
+
+        With MXX_MUL_DECOMPOSE_COLUMN_CHUNK_WIDTH = w > 0, G^{-1}(other) is
+        never held whole: chunks of w columns are decomposed and multiplied
+        one by one, then concatenated (exact, since the digits of an entry
+        depend on that entry alone)."""
         k = self.params.modulus_digits
         if self.ncol != other.nrow * k:
             raise ValueError(f"shape mismatch {self.shape} @ G^-1 of {other.shape}, k={k}")
-        return self @ other.decompose()
+        w = config.mul_decompose_column_chunk_width()
+        if w <= 0 or other.ncol <= w:
+            return self @ other.decompose()
+        outs = [self @ other.slice_columns(s, min(s + w, other.ncol)).decompose()
+                for s in range(0, other.ncol, w)]
+        return outs[0].concat_columns(outs[1:])
+
+    def mul_decompose_small(self, other: "PolyMatrix") -> "PolyMatrix":
+        """self @ small_G^{-1}(other): self [*, d*dpt], other [d, m]."""
+        dpt = self.params.digits_per_tower
+        if self.ncol != other.nrow * dpt:
+            raise ValueError(f"shape mismatch {self.shape} @ small G^-1 of {other.shape}")
+        return self @ other.small_decompose()
+
+    def mul_tensor_identity(self, other: "PolyMatrix", identity_size: int) -> "PolyMatrix":
+        """self @ (I_identity_size tensor other), without building it."""
+        w = other.nrow
+        if self.ncol != w * identity_size:
+            raise ValueError(f"shape mismatch {self.shape} @ I_{identity_size} x {other.shape}")
+        slices = [self.slice_columns(i * w, (i + 1) * w) @ other for i in range(identity_size)]
+        return slices[0].concat_columns(slices[1:])
+
+    def mul_tensor_identity_decompose(self, other: "PolyMatrix",
+                                      identity_size: int) -> "PolyMatrix":
+        """self @ (I_identity_size tensor G^{-1}(other)), without building it."""
+        w = other.nrow * self.params.modulus_digits
+        if self.ncol != w * identity_size:
+            raise ValueError(f"shape mismatch {self.shape} @ I_{identity_size} x G^-1 of "
+                             f"{other.shape}")
+        slices = [self.slice_columns(i * w, (i + 1) * w).mul_decompose(other)
+                  for i in range(identity_size)]
+        return slices[0].concat_columns(slices[1:])
 
     def modulus_switch(self, new_modulus: int) -> "PolyMatrix":
         """Round-scale every coefficient from q to new_modulus: round(x P / q)
@@ -325,19 +428,40 @@ class PolyMatrix:
     # ---------------------------------------------------------------- serde
 
     def to_compact_bytes(self) -> bytes:
-        arr = self.data.cpu().numpy().astype(np.uint32)
-        return compact_header(self.params, self.fmt, self.nrow, self.ncol) + arr.tobytes()
+        return (compact_header(self.params, self.fmt, self.nrow, self.ncol)
+                + host_u32(self.data).tobytes())
 
     @staticmethod
     def from_compact_bytes(params: RingParams, raw: bytes, device="cuda") -> "PolyMatrix":
-        if raw[:4] != _MAGIC:
-            raise ValueError("bad matrix magic")
-        ver, fmt_i, nrow, ncol, n, depth, _crt_bits, _base_bits = struct.unpack(
-            "<BBIIIIHB", raw[4:25]
-        )
-        if ver != 1 or n != params.n or depth != params.crt_depth:
-            raise ValueError(f"matrix bytes v{ver} n={n} L={depth} do not match {params}")
+        fmt, nrow, ncol, _ = _parse_header(params, raw, _MAGIC)
         # residues are below 2^31: move them as int32 and widen on the device
-        arr = np.frombuffer(raw, dtype=np.int32, count=depth * nrow * ncol * n, offset=25)
-        data = torch.from_numpy(arr.reshape(depth, nrow, ncol, n).copy()).to(device)
-        return PolyMatrix(data.to(torch.int64), COEFF if fmt_i == 0 else EVAL, params)
+        arr = np.frombuffer(raw, dtype=np.int32, count=params.crt_depth * nrow * ncol * params.n,
+                            offset=25)
+        data = torch.from_numpy(arr.reshape(params.crt_depth, nrow, ncol, params.n).copy())
+        return PolyMatrix(data.to(device).to(torch.int64), fmt, params)
+
+    def to_packed_bytes(self) -> bytes:
+        """The `MXPK` header, then every residue in crt_bits bits (host codec)."""
+        p = self.params
+        return (compact_header(p, self.fmt, self.nrow, self.ncol, _PACKED_MAGIC)
+                + pack_u32(host_u32(self.data), p.crt_bits))
+
+    @staticmethod
+    def from_packed_bytes(params: RingParams, raw: bytes, device="cuda") -> "PolyMatrix":
+        fmt, nrow, ncol, crt_bits = _parse_header(params, raw, _PACKED_MAGIC)
+        shape = (params.crt_depth, nrow, ncol, params.n)
+        arr = unpack_u32(memoryview(raw)[25:], int(np.prod(shape)), crt_bits)
+        data = torch.from_numpy(arr.view(np.int32).reshape(shape))
+        return PolyMatrix(data.to(device).to(torch.int64), fmt, params)
+
+    def write_to_file(self, dir_path, mat_id: str) -> None:
+        """`<dir_path>/<mat_id>.mxxm`: the compact bytes."""
+        os.makedirs(dir_path, exist_ok=True)
+        with open(os.path.join(dir_path, f"{mat_id}.mxxm"), "wb") as f:
+            f.write(self.to_compact_bytes())
+
+    @staticmethod
+    def read_from_file(params: RingParams, dir_path, mat_id: str,
+                       device="cuda") -> "PolyMatrix":
+        with open(os.path.join(dir_path, f"{mat_id}.mxxm"), "rb") as f:
+            return PolyMatrix.from_compact_bytes(params, f.read(), device)

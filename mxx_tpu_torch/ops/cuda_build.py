@@ -1,10 +1,12 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
 Each source under `mxx_tpu_torch/csrc/` is a plain-C-interface shared library
-(no PyTorch headers, so a build takes seconds). It is compiled for sm_90a at
-first use into `build/mxx_tpu_torch/` at the root of the checkout, under a
-name keyed by a hash of the source and the flags; a later process finds the
-library there and only loads it. Nothing here runs at import time.
+(no PyTorch headers, so a build takes seconds): a `.cu` file is compiled by
+nvcc for sm_90a, a host `.cpp` file (`csrc/host/`: the artifact codec and
+writer) by g++. It is built at first use into `build/mxx_tpu_torch/` at the
+root of the checkout, under a name keyed by a hash of the source and the
+flags; a later process finds the library there and only loads it. A failed
+or impossible build raises. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 # source name -> (ctypes.CDLL, seconds spent building in this process)
 _LOADED: dict[str, tuple[ctypes.CDLL, float]] = {}
@@ -40,10 +43,22 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the host codec and writer are built with g++")
+    return found
+
+
+def _flags(source: str) -> tuple[str, ...]:
+    """nvcc's flags for a .cu source, g++'s for a host .cpp one."""
+    return NVCC_FLAGS if source.endswith(".cu") else HOST_FLAGS
+
+
 def _stem(source: str) -> Path:
     """Build path without suffix: source name plus a hash of source and flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(source)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}"
 
 
@@ -56,19 +71,20 @@ def load(source: str) -> ctypes.CDLL:
     lib_path = stem.with_suffix(".so")
     seconds = 0.0
     if not lib_path.exists():
+        compiler = _nvcc() if source.endswith(".cu") else _gxx()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         # build under a temporary name and rename, so that concurrent
         # processes never load a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        cmd = [compiler, *_flags(source), "-o", tmp, str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log = proc.stdout + proc.stderr
         stem.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+            raise RuntimeError(f"{Path(compiler).name} failed on {src.name}:\n{log}")
         os.replace(tmp, lib_path)
         seconds = time.perf_counter() - t0
     _LOADED[source] = (ctypes.CDLL(str(lib_path)), seconds)
@@ -81,6 +97,7 @@ def build_seconds(source: str) -> float:
 
 
 def build_log(source: str) -> str:
-    """nvcc's output for the current build of `source` (ptxas resource usage)."""
+    """The compiler's output for the current build of `source` (for a .cu
+    source, ptxas resource usage)."""
     path = _stem(source).with_suffix(".log")
     return path.read_text() if path.exists() else ""

@@ -3,18 +3,20 @@
 The port's counterpart of `mxx_tpu/ring/poly.py`. EVAL format = the
 bit-reversed negacyclic evaluation order produced by `ring.ntt.ntt_fwd`.
 The compact bytes are the JAX package's format (uint32 residues after a
-17-byte header), so either package reads what the other wrote.
+17-byte header), and so are its `.mxxp` files, so either package reads what
+the other wrote.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..ops.elementwise import ew_add, ew_mul, ew_neg, ew_sub
+from ..ops.elementwise import ew_add, ew_mul, ew_mul_const, ew_neg, ew_sub
 from .ntt import ntt_fwd_auto, ntt_inv_auto
 from .params import RingParams
 
@@ -70,6 +72,15 @@ class Poly:
         return Poly.const(params, 1, device)
 
     @staticmethod
+    def minus_one(params: RingParams, device="cuda") -> "Poly":
+        return Poly.const(params, -1, device)
+
+    @staticmethod
+    def from_elems(params: RingParams, elems, device="cuda") -> "Poly":
+        """Coefficient-order construction from `FinRingElem`s."""
+        return Poly.from_int_coeffs(params, [e.value for e in elems], device)
+
+    @staticmethod
     def from_elem_to_constant(params: RingParams, elem, device="cuda") -> "Poly":
         """Constant polynomial of a `FinRingElem`."""
         return Poly.const(params, elem.value, device)
@@ -85,6 +96,29 @@ class Poly:
             raise ValueError(f"{len(coeffs)} coefficients for n={params.n}")
         planes = residue_planes_from_ints(params, coeffs).astype(np.int64)
         return Poly(torch.from_numpy(planes).to(device), COEFF, params)
+
+    @staticmethod
+    def from_ints_eval(params: RingParams, values, device="cuda") -> "Poly":
+        """Integer values placed in the EVAL slots (slot j = position j of the
+        bit-reversed evaluation order)."""
+        if len(values) != params.n:
+            raise ValueError(f"{len(values)} slot values for n={params.n}")
+        planes = residue_planes_from_ints(params, values).astype(np.int64)
+        return Poly(torch.from_numpy(planes).to(device), EVAL, params)
+
+    @staticmethod
+    def from_decomposed(params: RingParams, digit_polys: list["Poly"], device="cuda") -> "Poly":
+        """Recompose sum_i digits[i] * base^i (EVAL form), on the digits'
+        device (`device` only for an empty list)."""
+        if digit_polys:
+            device = digit_polys[0].data.device
+        acc = Poly.zero(params, EVAL, device)
+        q = params.tables(device).moduli
+        for i, dp in enumerate(digit_polys):
+            scale = torch.from_numpy(
+                residues_from_int(params, 1 << (params.base_bits * i)).astype(np.int64)).to(device)
+            acc = Poly(ew_add(acc.data, ew_mul_const(dp.to_eval().data, scale, q), q), EVAL, params)
+        return acc
 
     # --------------------------------------------------------------- format
 
@@ -106,9 +140,22 @@ class Poly:
         p = self.params
         return [p.reconstruct_coeff(arr[:, j]) for j in range(p.n)]
 
+    def coeffs_np(self) -> np.ndarray:
+        """Per-limb coefficient residues as numpy uint32 [L, n]."""
+        return self.to_coeff().data.to(torch.int32).cpu().numpy().view(np.uint32)
+
     def const_coeff(self) -> int:
         arr = self.to_coeff().data[:, 0].cpu().numpy()
         return self.params.reconstruct_coeff(arr)
+
+    def const_coeff_u64(self) -> int:
+        return self.const_coeff()
+
+    def eval_slots(self) -> list[int]:
+        """Big-int values of the EVAL slots (host CRT reconstruction)."""
+        arr = self.to_eval().data.cpu().numpy()
+        p = self.params
+        return [p.reconstruct_coeff(arr[:, j]) for j in range(p.n)]
 
     def const_value(self) -> int:
         """Value of a CONSTANT polynomial without a transform: a constant has
@@ -162,6 +209,29 @@ class Poly:
     def large_scalar_mul(self, params: RingParams, scalar: list[int]) -> "Poly":
         return self * scalar_poly(params, scalar, self.data.device)
 
+    # --------------------------------------------------- digit decomposition
+
+    def decompose_base(self) -> list["Poly"]:
+        """Positional base-2^b digits of the full big-int coefficients, one
+        COEFF poly per digit (`modulus_digits` of them). Host path."""
+        p = self.params
+        coeffs = self.coeffs()
+        mask = (1 << p.base_bits) - 1
+        device = self.data.device
+        return [Poly.from_int_coeffs(p, [(c >> (d * p.base_bits)) & mask for c in coeffs], device)
+                for d in range(p.modulus_digits)]
+
+    def extract_bits_with_threshold(self) -> list[bool]:
+        """One bit per coefficient: whether it lies in [q/4, 3q/4), the decode
+        of a half-q-scaled message bit."""
+        q = self.params.modulus
+        quarter = ((q + 1) // 2) >> 1
+        three_quarter = quarter * 3
+        return [quarter <= c < three_quarter for c in self.coeffs()]
+
+    def to_bool_vec(self) -> list[bool]:
+        return [c == 1 for c in self.coeffs()]
+
     # ---------------------------------------------------------------- serde
 
     def to_compact_bytes(self) -> bytes:
@@ -182,6 +252,17 @@ class Poly:
             raise ValueError(f"poly bytes v{ver} n={n} L={depth} do not match {params}")
         arr = np.frombuffer(raw[17:], dtype=np.uint32).reshape(depth, n).astype(np.int64)
         return Poly(torch.from_numpy(arr).to(device), COEFF if fmt_i == 0 else EVAL, params)
+
+    def write_to_file(self, dir_path, poly_id: str) -> None:
+        """`<dir_path>/<poly_id>.mxxp`: the compact bytes."""
+        os.makedirs(dir_path, exist_ok=True)
+        with open(os.path.join(dir_path, f"{poly_id}.mxxp"), "wb") as f:
+            f.write(self.to_compact_bytes())
+
+    @staticmethod
+    def read_from_file(params: RingParams, dir_path, poly_id: str, device="cuda") -> "Poly":
+        with open(os.path.join(dir_path, f"{poly_id}.mxxp"), "rb") as f:
+            return Poly.from_compact_bytes(params, f.read(), device)
 
 
 def scalar_poly(params: RingParams, scalar: list[int], device="cuda") -> Poly:

@@ -132,3 +132,13 @@ def gauss_residues(key: torch.Tensor, shape: tuple, q: torch.Tensor, sigma: floa
         thresholds, tail = gauss_table(float(sigma))
         return gauss_residues_table(key, shape, q, thresholds, tail)
     return gauss_residues_rounded(key, shape, q, float(sigma))
+
+
+def gauss_ints(key: torch.Tensor, shape: tuple, sigma: float) -> torch.Tensor:
+    """Signed int64 discrete-Gaussian draws (no residue reduction): the
+    table path for sigma <= KARNEY_THRESHOLD, a rounded continuous Gaussian
+    above it."""
+    if sigma <= KARNEY_THRESHOLD:
+        thresholds, tail = gauss_table(float(sigma))
+        return _table_ints(key, shape, thresholds, tail)
+    return torch.round(chacha.normal(key, shape, torch.float64) * float(sigma)).to(torch.int64)

@@ -113,6 +113,23 @@ class HashSampler:
             fmt = EVAL
         return [PolyMatrix(data[:, i], fmt, params) for i in range(B)]
 
+    def sample_hash_decomposed(self, params: RingParams, key: bytes, tag, nrow: int, ncol: int,
+                               dist: DistType) -> PolyMatrix:
+        """G^{-1} of `sample_hash`: [nrow * k, ncol]."""
+        return self.sample_hash(params, key, tag, nrow, ncol, dist).decompose()
+
+    def sample_hash_decomposed_columns(self, params: RingParams, key: bytes, tag, nrow: int,
+                                       total_ncol: int, col_start: int, col_len: int,
+                                       dist: DistType) -> PolyMatrix:
+        """G^{-1} of a column window of `sample_hash`."""
+        return self.sample_hash_columns(params, key, tag, nrow, total_ncol, col_start, col_len,
+                                        dist).decompose()
+
+    def sample_hash_small_decomposed(self, params: RingParams, key: bytes, tag, nrow: int,
+                                     ncol: int, dist: DistType) -> PolyMatrix:
+        """Small (per-tower) G^{-1} of `sample_hash`: [nrow * dpt, ncol]."""
+        return self.sample_hash(params, key, tag, nrow, ncol, dist).small_decompose()
+
 
 class UniformSampler:
     """Fresh-randomness sampler; the key is split on every call."""

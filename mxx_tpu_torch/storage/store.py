@@ -12,10 +12,12 @@ barrier on the writes it names) and by `wait_for_all_writes`.
 Batch file format (one file per part): b"MXBT" | u32 count |
 count * (u64 idx, u64 offset, u64 length) | payload blobs.
 
-Writes go through a thread pool (the JAX package's native C++ writer is not
-ported). `get_lookup_buffer` copies a buffer's matrices to the host with one
-device-to-host copy, and the readers load a matrix onto the device the
-caller names.
+Batch files are written by the native C++ writer (`native/writer.py`), as
+in the JAX package: `add_buffer` queues a file's header and payloads without
+copying them, and `wait_for_all_writes` is the barrier that also checks the
+writer reported no failed write. `get_lookup_buffer` copies a buffer's
+matrices to the host with one device-to-host copy, and the readers load a
+matrix onto the device the caller names.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import json
 import os
 import struct
 import threading
-import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..native.writer import submit_write, wait_all_writes, write_errors
 from ..utils.tracing import event, span
 
 _MAGIC = b"MXBT"
@@ -77,14 +79,16 @@ def _read_table(f, path: Path) -> list[tuple[int, int, int]]:
 
 
 class StorageSystem:
-    def __init__(self, dir_path: Path, workers: int = 4):
+    def __init__(self, dir_path: Path):
         self.dir_path = Path(dir_path)
         self.dir_path.mkdir(parents=True, exist_ok=True)
-        self._pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="mxx-storage")
+        # one thread runs the periodic index flushes, so they land in order
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="mxx-storage-index")
         self._futures: list[Future] = []
         self._index_lock = threading.Lock()
         self._index: dict[str, dict] = {}
         self._writes_since_sync = 0
+        self._write_errors_at_start = write_errors()
         self._load_index()
 
     def _index_path(self) -> Path:
@@ -107,15 +111,13 @@ class StorageSystem:
         with self._index_lock:
             self._write_index_atomic(self._index)
 
-    def _flush_index_durable(self, snapshot: dict, pending: list):
+    def _flush_index_durable(self, snapshot: dict):
         """Background periodic flush: barrier on all writes submitted before
         the snapshot, THEN persist it, so the on-disk index never names a
         batch file that is missing or partial."""
-        for f in pending:
-            try:
-                f.result()
-            except Exception:
-                return  # leave the index un-advanced; wait_for_all_writes reports
+        wait_all_writes()
+        if write_errors() != self._write_errors_at_start:
+            return  # a batch file it names may be missing; wait_for_all_writes reports
         with self._index_lock:
             self._write_index_atomic(snapshot)
 
@@ -151,34 +153,25 @@ class StorageSystem:
             if sync_due:
                 self._writes_since_sync = 0
         path = self._batch_file(buffer.id_prefix, part)
-
-        def write():
-            # timed by hand, not by a span: a span would synchronize the
-            # device from this worker thread
-            started = time.monotonic()
-            tmp = path.with_suffix(path.suffix + ".tmp")
-            with open(tmp, "wb") as f:
-                f.write(buffer.header())
-                for _, raw in buffer.payloads:
-                    f.write(raw)
-            os.replace(tmp, path)
-            event("storage.write_part", prefix=buffer.id_prefix, part=part,
-                  bytes=buffer.nbytes(), elapsed_ms=(time.monotonic() - started) * 1e3)
-
-        self._futures.append(self._pool.submit(write))
+        submit_write(path, [buffer.header()] + [raw for _, raw in buffer.payloads])
+        event("storage.write_part", prefix=buffer.id_prefix, part=part, bytes=buffer.nbytes())
         if sync_due:
             # periodic index flush so long offline passes are resumable
             # without a final wait_for_all_writes; it runs after a barrier on
             # everything submitted so far
             with self._index_lock:
                 snapshot = json.loads(json.dumps(self._index))
-            pending = list(self._futures)
-            self._futures.append(self._pool.submit(self._flush_index_durable, snapshot, pending))
+            self._futures.append(self._pool.submit(self._flush_index_durable, snapshot))
 
     def wait_for_all_writes(self):
         for f in list(self._futures):
             f.result()
         self._futures.clear()
+        wait_all_writes()
+        failed = write_errors() - self._write_errors_at_start
+        if failed:
+            raise IOError(f"the native artifact writer failed {failed} writes under "
+                          f"{self.dir_path}")
         self._flush_index()
 
     def _parts(self, prefix: str) -> int:

@@ -30,7 +30,11 @@ _MODULES = {
     "goldreich": "gadgets.fhe_prg.goldreich", "mask_circuit": "decoder.mask_circuit",
     "prg": "decoder.prg", "circuit_decrypt": "noise_refresh.circuit_decrypt",
     "circuit_merge": "noise_refresh.circuit_merge", "circuit_prg": "noise_refresh.circuit_prg",
-    "refresh": "noise_refresh.refresh",
+    "refresh": "noise_refresh.refresh", "serde": "circuit.serde",
+    "poly_vec": "circuit.poly_vec", "vec_eval": "lookup.vec_eval",
+    "slot_transfer": "slot_transfer", "mod_switch": "gadgets.mod_switch",
+    "ntt_circuit": "gadgets.ntt_circuit", "ckks": "gadgets.fhe.ckks",
+    "carry": "gadgets.arith.carry_montgomery",
 }
 
 
@@ -170,3 +174,43 @@ def test_a_difference_is_named(change, where):
     ct, pt = _build("mxx_tpu_torch", **change)
     with pytest.raises(AssertionError, match=where.replace("[", r"\[").replace("]", r"\]")):
         assert_circuits_equal(cj, ct, pj, pt)
+
+
+# ------------------------------------------- the arithmetic gadget modules
+
+
+def _gadget_circuit(pkg, gadget):
+    """A small circuit of each arithmetic gadget module in either package."""
+    ns = load(pkg)
+    c = ns.circuit.PolyCircuit()
+    if gadget == "ntt_circuit":
+        params = ns.params.RingParams.new(8, 2, 17, 1)
+        (w,) = c.input(1)
+        lut = ns.ntt_circuit.register_mod_p_lut(c, params, 17, 2 * 17 * 17)
+        fwd = ns.ntt_circuit.forward_ntt(c, w, 8, 17, lut)
+        c.output([fwd, ns.ntt_circuit.inverse_ntt(c, fwd, 8, 17, lut)])
+        return c, params
+    if gadget == "carry_montgomery":
+        params = ns.params.RingParams.default()
+        ctx = ns.carry.CarryArithContext(c, params, 4, 4)
+        a, b = ns.carry.CarryArithPoly.input(ctx, c), ns.carry.CarryArithPoly.input(ctx, c)
+        prod = ns.carry.MontgomeryContext(ctx, 64513).mont_mul(a, b, c)
+        c.output(a.add(b, c).normalize(c).limbs + a.mul(b, c).limbs + prod.limbs)
+        return c, params
+    params = ns.params.RingParams.new(16, 3, 20, 5)
+    ctx = ns.ckks.CKKSContext(c, params, 8, max_unreduced_muls=2, scale=1 << 17,
+                              relinearization_extra_levels=1)
+    if gadget == "mod_switch":
+        x = ns.nested.NestedRnsPoly.input(ctx.nested, c, 0, 3)
+        c.output(ns.mod_switch.drop_levels(x, 2).flatten())
+        return c, params
+    w1 = ns.ckks.CKKSCiphertext.input(ctx, c)
+    w2 = ns.ckks.CKKSCiphertext.input(ctx, c)
+    c.output(w1.add(w2, c).rescale(c).flatten())
+    return c, params
+
+
+@pytest.mark.parametrize("gadget", ["mod_switch", "ntt_circuit", "ckks", "carry_montgomery"])
+def test_gadget_circuits_equal(gadget):
+    (cj, pj), (ct, pt) = (_gadget_circuit(pkg, gadget) for pkg in BOTH)
+    assert_circuits_equal(cj, ct, pj, pt)
