@@ -174,13 +174,39 @@ no package beside it, a kernel that does not build, launch or agree):
    17 at n=2^13 over `PolyVec` plaintexts on the card: the forward output
    equals the host NTT mod 17 and the round trip the input; K1 and K2
    launched in each of phases 19-22 (counters reset before, read after);
-23. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+23. `diamond io lwe`: Diamond iO over the production LWE LUT evaluators
+   (the default factories), the config of tests/test_production_lwe_diamond.py
+   (n=4, L=3, crt_bits 10, base_bits 10, input_count 1, batch_bits 1, seed
+   11, its PRF config with nested_rns_scale 64, debug replay, the builder
+   [bits[0]]; the ring is cut by artifact size: the phase prints the K_high
+   bytes its row count projects at n=2^12, L=2 and n=2^13, L=8): obfuscate
+   into a temporary directory (the LUT bridge preimage; the K_high rows of
+   every recorded LUT gate, assembled and sampled in shared preimage calls,
+   written through the store), evaluate [0] and [1] (c_b = s B; K_high read
+   back); checked: both decode, c_one == sigma (A_one - G), B0 lut_bridge
+   == [lut_b; 0], B K_high == target for every stored row of the first LUT
+   gate of each plt context (refresh decrypts, wrapped circuit), all exact;
+   times by span (bridge, targets, preimages, copies, writes, online
+   reads), preimage calls and columns, files and bytes, peak device memory
+   and host RSS;
+24. `diamond io noise`: packed payload (4 slots) at n=256, L=3, crt_bits 24,
+   base_bits 5, error sigma 4.0 everywhere, trapdoor sigma 4.578, seed
+   6042, the CI PRF config, debug LUT evaluators, XOR of two bits
+   (tests/test_noise_regime.py `test_diamond_io_packed_noise_n256`);
+   checked: both decode, and the worst observed error in bits <= the
+   composed simulated bound (replay mode) <= observed + 80, printed side by
+   side; the decode margins are printed against (q // 4) >> 4, not held (the
+   error is q-scale in both packages); times by span and peak device
+   memory. Phases 23 and 24 launch neither K1 nor K2 (n < 2048 takes
+   the radix chain): they print their counts (0 / 0) and do not require
+   launches;
+25. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, each kernel against its plain version at the largest transform of
    the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
    profiled batched encoding pass, its device time split by stage;
-24. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+26. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
    path's count beside it in `launches_by_path`; each kernel's least time
    `bound_ms`, the larger of its device-memory time and its integer floor,
    and its share `pct_of_bound`; `library_ms` null, since no PyTorch call
@@ -2762,6 +2788,313 @@ def drive_ntt_circuit(p, dev, timing) -> dict:
     return counts
 
 
+DIO_LWE_RING = (4, 3, 10, 10)  # tests/test_production_lwe_diamond.py
+DIO_NOISE_RING = (256, 3, 24, 5)  # tests/test_noise_regime.py, the packed n=256 run
+NO_KERNEL_NOTE = ("K1/K2 not launched: ring/ntt.py sends n < 2048 to the radix chain, so "
+                  "this phase runs no four-step kernel")
+
+
+def production_prf_config():
+    from mxx_tpu_torch.io_protocols.prf_mask import PrfConfig
+
+    # tests/test_production_lwe_diamond.py
+    return PrfConfig(seed_bits=2, prf_mask_output_coeff_bits=1, p_moduli_bits=5,
+                     max_unreduced_muls=1, noise_refresh_v_bits=1, nested_rns_scale=64,
+                     debug_encrypt_random_prg_wires=True, debug_reuse_single_material=True,
+                     refresh_wire_limit=1)
+
+
+def first_bit_builder(circuit, bits):
+    return [bits[0]]
+
+
+def k_high_row_bytes(n: int, L: int, crt_bits: int = 28, base_bits: int = 14) -> int:
+    """Compact bytes of one d=1 K_high row: a 25-byte header and uint32
+    residues [L, k + 2, k, n], k = L ceil(crt_bits / base_bits)."""
+    k = L * -(-crt_bits // base_bits)
+    return 25 + L * (k + 2) * k * n * 4
+
+
+def span_line(log, names) -> str:
+    return "".join(f"; {label} {log.total_ms(name) / 1e3:.3f} s" for label, name in names)
+
+
+def drive_diamond_io_lwe(dev, timing) -> dict:
+    """Diamond iO over the production LWE LUT evaluators (the default
+    factories), in the config of tests/test_production_lwe_diamond.py:
+    obfuscate into a temporary directory (the LUT bridge preimage, the
+    K_high rows of every recorded LUT gate through the store), evaluate [0]
+    and [1] (c_b = s B from the bridge, the stored K_high read back), check
+    both decodes, c_one == sigma (A_one - G), B0 lut_bridge == [lut_b; 0]
+    and B K_high == target for every stored row of the first LUT gate of
+    each plt context, all exact. Returns the K1/K2 launch counts
+    ("launches") and the phase's counts and times."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BGGPublicKeySampler
+    from mxx_tpu_torch.io_protocols import DiamondIO
+    from mxx_tpu_torch.lookup import lwe
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.params import RingParams
+    from mxx_tpu_torch.storage import read_matrices_from_multi_batch
+
+    p = RingParams.new(*DIO_LWE_RING)
+    dio = DiamondIO(p, input_count=1, batch_bits=1, seed=11, prf_config=production_prf_config(),
+                    device=dev)
+    # the pubkey evaluator the obfuscation makes, and its gate records from
+    # just before `sample_aux_matrices` clears them
+    seen = {"in_aux": False}
+    cls = lwe.LWEBGGPubKeyPltEvaluator
+    sample_aux = cls.sample_aux_matrices
+
+    def recording(self, params):
+        seen["eval"], seen["states"] = self, dict(self.gate_state)
+        seen["in_aux"] = True
+        try:
+            return sample_aux(self, params)
+        finally:
+            seen["in_aux"] = False
+
+    parts: dict = {}
+    instrument(dio._trap, "preimage", parts, "trapdoor preimages",
+               lambda a, out: (seen["in_aux"], a[3].ncol))
+    tmp = Path(tempfile.mkdtemp(prefix="mxx_diamond_io_lwe_"))
+    cls.sample_aux_matrices = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        four_step.launches.update(fwd=0, inv=0)
+        with SpanLog() as obf_log, HostRssPeak() as rss:
+            obf, ms_obf = timed(lambda: dio.obfuscate(tmp, first_bit_builder))
+        cls.sample_aux_matrices = sample_aux
+        files = [f for f in tmp.iterdir() if f.is_file()]
+        nbytes = sum(f.stat().st_size for f in files)
+        k_high_files = [f for f in files if f.name.startswith("LWE_K_H_")]
+        k_high_bytes = sum(f.stat().st_size for f in k_high_files)
+        peak_obf = torch.cuda.max_memory_allocated()
+        results = []
+        for bits in ([0], [1]):
+            torch.cuda.reset_peak_memory_stats()
+            with SpanLog() as log:
+                out, ms = timed(lambda b=bits: dio.eval(tmp, obf, first_bit_builder, b))
+            results.append((bits, out, ms, list(dio.last_decode_margins), log,
+                            torch.cuda.max_memory_allocated()))
+        counts = dict(four_step.launches)
+
+        digits = [1]
+        states = dio.injector.online_eval(tmp, obf.preprocess_out, digits)
+        sigma = dio.injector.debug_final_secret_matrix(tmp, digits)
+        one_pk = BGGPublicKeySampler(obf.hash_key, 1, dev).sample(p, b"diamond_bgg", [True])[0]
+        c_one = states[0] @ dio._read(tmp, "one_preimage")
+        ok_one = c_one == sigma @ (one_pk.matrix - PolyMatrix.gadget_matrix(p, 1, dev))
+        pk_eval = seen["eval"]
+        lut_b = pk_eval.pub_matrix
+        b0 = obf.preprocess_out.final_checkpoint(0)[1]
+        zero = PolyMatrix.zero(p, 1, lut_b.ncol, device=dev)
+        ok_bridge = b0 @ dio._read(tmp, "lut_bridge") == lut_b.concat_rows([zero])
+        # every stored row of the first gate of each context: B K_high == target
+        first: dict = {}
+        for key, st in seen["states"].items():
+            first.setdefault(key[0], (key, st))
+        checked, bad = {}, []
+        for ctx, ((_, gate_id, slot), st) in first.items():
+            targets = pk_eval._k_high_targets(p, st.plt, st.input_pubkey, st.output_pubkey,
+                                              gate_id, st.lut_id, slot, ctx)
+            prefix = lwe.k_high_checkpoint_prefix(gate_id, st.lut_id, slot, ctx)
+            rows = dict(read_matrices_from_multi_batch(p, tmp, prefix, dev))
+            good = 0
+            for (_, (kk, _)), t in zip(st.plt.entries(p), targets):
+                k_high = rows.get(int(kk))
+                if k_high is not None and lut_b @ k_high == t:
+                    good += 1
+                else:
+                    bad.append((ctx, gate_id, int(kk)))
+            checked[ctx] = (gate_id, good, st.plt.length)
+            del targets, rows
+        ok_rows = (not bad and "wrapped" in first and any(c != "wrapped" for c in first))
+        torch.cuda.synchronize()
+    finally:
+        cls.sample_aux_matrices = sample_aux
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    ok_dec = all(out == [b[0]] for b, out, *_ in results)
+    recorded = seen["states"]
+    rows_total = sum(st.plt.length for st in recorded.values())
+    contexts: dict = {}
+    for (ctx, _, _) in recorded:
+        contexts[ctx] = contexts.get(ctx, 0) + 1
+    calls = parts["trapdoor preimages"]
+    kh = [(ms, cols) for ms, (in_aux, cols) in calls if in_aux]
+    other = [(ms, cols) for ms, (in_aux, cols) in calls if not in_aux]
+    for bits, out, ms, margins, log, peak in results:
+        print(f"diamond io lwe eval {bits}: decoded {out}, want {[bits[0]]}; decode margins "
+              f"(distance to the nearest q/2 codeword, of q = {p.modulus}): "
+              f"{[m[1] for m in margins]}", flush=True)
+    print(f"diamond io lwe n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits "
+          f"{p.base_bits}, input_count 1, production LWE LUT evaluators, debug replay: decodes "
+          f"{ok_dec}, c_one == sigma (A_one - G) {ok_one}, B0 lut_bridge == [lut_b; 0] "
+          f"{ok_bridge}, B K_high == target for every stored row of the first gate of each "
+          f"context {ok_rows} ({checked}) (tolerance 0: exact); {len(recorded)} LUT gates "
+          f"recorded ({contexts}), {rows_total} K_high rows; launches in the phase: fwd "
+          f"{counts['fwd']}, inv {counts['inv']} ({NO_KERNEL_NOTE})", flush=True)
+    print(f"diamond io lwe: preimage calls: K_high {len(kh)} ({sum(c for _, c in kh)} columns, "
+          f"{sum(m for m, _ in kh) / 1e3:.3f} s), the others (LUT bridge, rebase, refresh, "
+          f"output, decoder) {len(other)} ({sum(c for _, c in other)} columns, "
+          f"{sum(m for m, _ in other) / 1e3:.3f} s); artifacts: {len(files)} files, {nbytes} B "
+          f"written, of them K_high {len(k_high_files)} files, {k_high_bytes} B (directory "
+          f"deleted)", flush=True)
+    per_row = k_high_bytes / rows_total
+    for n, L in ((4096, 2), (8192, 8)):
+        print(f"diamond io lwe: projected K_high bytes at n={n}, L={L} (crt_bits 28, base_bits "
+              f"14): {rows_total} rows x {k_high_row_bytes(n, L)} B = "
+              f"{rows_total * k_high_row_bytes(n, L) / 1e12:.2f} TB (a lower bound: more limbs "
+              f"mean more nested-RNS moduli, more LUT gates and rows; here {per_row:.1f} B per "
+              f"row)", flush=True)
+    timing("diamond io lwe: obfuscate", ms_obf / 1e3, "s", span_line(obf_log, (
+        ("injector preprocess", "diamond_injector.preprocess"),
+        ("LUT bridge", "diamond_io.lut_bridge"),
+        ("PRF public-key path", "prf_pipeline.pk_round"),
+        ("wrapped pubkey pass", "diamond_io.pk_circuit_eval"),
+        ("sample_aux_matrices", "lwe_lut.sample_aux_matrices"),
+        ("of it lwe_lut.k_high_targets", "lwe_lut.k_high_targets"),
+        ("lwe_lut.k_high_preimages", "lwe_lut.k_high_preimages"),
+        ("storage.device_to_host", "storage.device_to_host"),
+        ("storage.serialize", "storage.serialize"),
+        ("wait_for_all_writes", "diamond_io.wait_for_all_writes")))
+        + f"; {rss.note()}")
+    for bits, out, ms, margins, log, peak in results:
+        reads = sum(r.fields["gates"] for r in log.records
+                    if getattr(r, "span", None) == "lwe_lut.k_high_reads")
+        timing(f"diamond io lwe: eval {bits}", ms / 1e3, "s", span_line(log, (
+            ("injector online", "diamond_injector.online_eval"),
+            ("LUT bridge encoding", "diamond_io.lut_bridge_encoding"),
+            ("PRF encoding path", "prf_pipeline.enc_round"),
+            ("wrapped encoding pass", "diamond_io.enc_circuit_eval"),
+            ("online K_high reads", "lwe_lut.k_high_reads")))
+            + f" ({reads} rows read); peak device memory {peak / 2**30:.3f} GiB")
+    timing("diamond io lwe: obfuscate peak device memory", peak_obf / 2**30, "GiB")
+    if not (ok_dec and ok_one and ok_bridge and ok_rows):
+        raise SystemExit(f"chip_smoke: Diamond iO over the LWE evaluators failed (bad rows "
+                         f"{bad[:5]})")
+    return {"launches": counts, "obfuscate_ms": ms_obf, "eval_ms": [r[2] for r in results],
+            "files": len(files), "bytes": nbytes, "k_high_calls": len(kh),
+            "k_high_cols": sum(c for _, c in kh), "rows": rows_total}
+
+
+def drive_diamond_io_noise(dev, timing) -> dict:
+    """Diamond iO with error sigma 4.0 everywhere, packed payload at n=256
+    (tests/test_noise_regime.py `test_diamond_io_packed_noise_n256`): 4
+    payload slots, trapdoor sigma 4.578, seed 6042, the CI PRF config, the
+    debug LUT evaluators, XOR of two bits. Obfuscate into a temporary
+    directory, evaluate [0, 1] and [1, 1]; check both decodes and the worst
+    observed error in bits within the composed simulated bound
+    (`simulate_prf_protocol_error` over `diamond_compose_input_error`,
+    replay mode) and at most 80 bits under it. Every decode margin is
+    printed against the JAX test's (q // 4) >> 4 and not held: the error of
+    this config is q-scale in both packages (it sits at q/4 at L=3 and at
+    L=4, and the JAX package's decode fails at n=8), so no run of either
+    package meets that margin but by chance. Returns the K1/K2 launch counts
+    ("launches") and the times."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.circuit import PolyCircuit
+    from mxx_tpu_torch.io_protocols import DiamondIO
+    from mxx_tpu_torch.io_protocols.protocol_simulation import (
+        diamond_compose_input_error,
+        simulate_prf_protocol_error,
+    )
+    from mxx_tpu_torch.lookup.debug import (
+        DebugBGGEncodingPltEvaluator,
+        DebugBGGPubKeyPltEvaluator,
+    )
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ring.params import RingParams
+
+    p = RingParams.new(*DIO_NOISE_RING)
+
+    def xor_builder(circuit, bits):
+        return [circuit.xor_gate(bits[0], bits[1])]
+
+    dio = DiamondIO(
+        p, input_count=2, batch_bits=1, seed=6042, error_sigma=ERROR_SIGMA,
+        trapdoor_sigma=TRAPDOOR_SIGMA, prf_config=dio_prf_config(), payload_slots=4, device=dev,
+        pk_plt_evaluator_factory=lambda s, d, hk, pre: DebugBGGPubKeyPltEvaluator(hk),
+        enc_plt_evaluator_factory=lambda s, d, obf, states, digits:
+            DebugBGGEncodingPltEvaluator(obf.hash_key,
+                                         s.injector.debug_final_secret_matrix(d, digits)),
+    )
+    tmp = Path(tempfile.mkdtemp(prefix="mxx_diamond_io_noise_"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        four_step.launches.update(fwd=0, inv=0)
+        with SpanLog() as obf_log:
+            obf, ms_obf = timed(lambda: dio.obfuscate(tmp, xor_builder))
+        nbytes = dir_bytes(tmp)
+        peak_obf = torch.cuda.max_memory_allocated()
+        results = []
+        for bits in ([0, 1], [1, 1]):
+            torch.cuda.reset_peak_memory_stats()
+            with SpanLog() as log:
+                out, ms = timed(lambda b=bits: dio.eval(tmp, obf, xor_builder, b))
+            results.append((bits, out, ms, list(dio.last_decode_margins), log,
+                            torch.cuda.max_memory_allocated()))
+        counts = dict(four_step.launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok_dec = all(out == [b[0] ^ b[1]] for b, out, *_ in results)
+    margins = [m for r in results for m in r[3]]
+    ok_margins = all(err < (q // 4) >> 4 for _, err, q in margins)
+    observed_bits = max(int(err) for _, err, _ in margins).bit_length()
+    fn_circuit = PolyCircuit()
+    ins = fn_circuit.input(2)
+    fn_circuit.output([fn_circuit.xor_gate(ins[0], ins[1])])
+    e_enc, worst_state = diamond_compose_input_error(p, dio.injector, TRAPDOOR_SIGMA)
+    sim, ms_sim = timed(lambda: simulate_prf_protocol_error(
+        p, dio._prf_pipeline(), fn_circuit, input_error_norm=e_enc,
+        state_error_norm=worst_state, error_sigma=ERROR_SIGMA, trapdoor_sigma=TRAPDOOR_SIGMA,
+        secret_size=dio.secret_size, replay_mode=True))
+    bound_bits = sim.total_error_bits
+    ok_bound = observed_bits <= bound_bits <= observed_bits + 80
+    q = p.modulus
+    for bits, out, ms, m, log, peak in results:
+        print(f"diamond io noise eval {bits}: decoded {out}, want {[bits[0] ^ bits[1]]}; decode "
+              f"errors {[e for _, e, _ in m]} against (q // 4) >> 4 = {(q // 4) >> 4}", flush=True)
+    print(f"diamond io noise n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits "
+          f"{p.base_bits}, packed payload_slots 4, error sigma {ERROR_SIGMA}, trapdoor sigma "
+          f"{TRAPDOOR_SIGMA}, debug replay: decodes {ok_dec}, every margin under (q // 4) >> 4 "
+          f"{ok_margins} (not held: q-scale error, {q.bit_length() - 2} bits is q/4, in both "
+          f"packages); worst observed error {observed_bits} bits, composed simulated bound "
+          f"{bound_bits} bits (replay mode; {ms_sim / 1e3:.3f} s on the host): observed <= bound "
+          f"<= observed + 80 {ok_bound}; artifacts {nbytes} B (directory deleted); launches in "
+          f"the phase: fwd {counts['fwd']}, inv {counts['inv']} ({NO_KERNEL_NOTE})", flush=True)
+    timing("diamond io noise: obfuscate", ms_obf / 1e3, "s", span_line(obf_log, (
+        ("injector preprocess", "diamond_injector.preprocess"),
+        ("PRF public-key path", "prf_pipeline.pk_round_packed"),
+        ("of it packed refresh decrypts", "noise_refresh.packed_material_decrypt"),
+        ("wrapped pubkey pass", "diamond_io.pk_circuit_eval"))))
+    for bits, out, ms, m, log, peak in results:
+        timing(f"diamond io noise: eval {bits}", ms / 1e3, "s", span_line(log, (
+            ("injector online", "diamond_injector.online_eval"),
+            ("PRF encoding path", "prf_pipeline.enc_round_packed"),
+            ("of it packed refresh decrypts", "noise_refresh.packed_material_decrypt"),
+            ("wrapped encoding pass", "diamond_io.enc_circuit_eval")))
+            + f"; peak device memory {peak / 2**30:.3f} GiB")
+    timing("diamond io noise: obfuscate peak device memory", peak_obf / 2**30, "GiB",
+           f"; artifacts {nbytes} B")
+    if not (ok_dec and ok_bound):
+        raise SystemExit("chip_smoke: Diamond iO noise check failed")
+    return {"launches": counts, "obfuscate_ms": ms_obf, "eval_ms": [r[2] for r in results],
+            "observed_bits": observed_bits, "bound_bits": bound_bits}
+
+
 def main() -> None:
     import torch
 
@@ -2896,7 +3229,15 @@ def main() -> None:
     nttc_counts = drive_ntt_circuit(p, dev, timing)
     torch.cuda.empty_cache()
 
-    # 23. timings
+    # 23. Diamond iO over the production LWE LUT evaluators
+    lwe_dio_counts = drive_diamond_io_lwe(dev, timing)["launches"]
+    torch.cuda.empty_cache()
+
+    # 24. Diamond iO with noise everywhere, packed payload at n=256
+    noise_dio_counts = drive_diamond_io_noise(dev, timing)["launches"]
+    torch.cuda.empty_cache()
+
+    # 25. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -2963,7 +3304,8 @@ def main() -> None:
                    "commit lut": commit_counts[d], "diamond io": dio_counts[d],
                    "estimators": est_counts[d], "core ops": core_counts[d],
                    "ckks": ckks_counts[d], "montgomery": mont_counts[d],
-                   "ntt circuit": nttc_counts[d]}
+                   "ntt circuit": nttc_counts[d], "diamond io lwe": lwe_dio_counts[d],
+                   "diamond io noise": noise_dio_counts[d]}
                for d in ("fwd", "inv")}
     cases = [
         ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",

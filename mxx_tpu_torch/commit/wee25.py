@@ -27,6 +27,7 @@ on the device of B.
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,6 +36,8 @@ import torch
 from ..matrix import PolyMatrix
 from ..ring.poly import EVAL, residue_planes_from_ints
 from ..sampler import FinRingDist, GaussDist, HashSampler, TrapdoorSampler, UniformSampler
+
+WEE25_PUBLIC_PARAMS_PREFIX = "wee25_public_params"
 
 @dataclass
 class Wee25PublicParams:
@@ -105,6 +108,13 @@ class Wee25Commit:
 
     def _j2m_cols(self, params) -> int:
         return self.l * self._log_q(params)
+
+    def checkpoint_prefix(self, params, hash_key: bytes) -> str:
+        kd = hashlib.sha256(hash_key).hexdigest()[:16]
+        return (
+            f"{WEE25_PUBLIC_PARAMS_PREFIX}_n{params.n}_L{params.crt_depth}"
+            f"_d{self.d}_tb{self.tree_base}_key{kd}"
+        )
 
     def _w_blocks(self, params, hash_key: bytes, device) -> torch.Tensor:
         """Every W_b (EVAL form) as int64[L, l*m_g, d, m_b, n]: one hash batch,

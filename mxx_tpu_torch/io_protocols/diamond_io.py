@@ -135,7 +135,7 @@ class DiamondIO:
         if mesh is not None:
             raise NotImplementedError(
                 "DiamondIO runs on one device; sharding its preimages over a mesh needs "
-                "parallel/mesh.py, which is not ported (ROADMAP Queue 1, item 12)")
+                "parallel/mesh.py, and the port has no parallel/ module yet")
         self.device = torch.device(device)
         self.params = params
         self.input_count = input_count
@@ -524,13 +524,14 @@ class DiamondIO:
         if self._pk_plt_factory is not None:
             pk_eval = self._pk_plt_factory(self, d, hash_key, pre_out)
         else:
-            lut_trapdoor, lut_b = self._trap.trapdoor(params, self.secret_size)
-            bridge_target = lut_b.concat_rows(
-                [PolyMatrix.zero(params, self.secret_size, lut_b.ncol, device=self.device)]
-            )
-            td0, b0 = pre_out.final_checkpoint(0)
-            bridge = self._trap.preimage(params, td0, b0, bridge_target)
-            self._write(d, "lut_bridge", bridge)
+            with span("diamond_io.lut_bridge"):
+                lut_trapdoor, lut_b = self._trap.trapdoor(params, self.secret_size)
+                bridge_target = lut_b.concat_rows(
+                    [PolyMatrix.zero(params, self.secret_size, lut_b.ncol, device=self.device)]
+                )
+                td0, b0 = pre_out.final_checkpoint(0)
+                bridge = self._trap.preimage(params, td0, b0, bridge_target)
+                self._write(d, "lut_bridge", bridge)
             pk_eval = LWEBGGPubKeyPltEvaluator(hash_key, self._trap, lut_b, lut_trapdoor, d)
 
         # PRF mask pipeline over pubkey wires (rounds + rebase + refresh)
@@ -599,7 +600,8 @@ class DiamondIO:
         set_plt_context(pk_eval, "")
         if hasattr(pk_eval, "sample_aux_matrices"):
             pk_eval.sample_aux_matrices(params)
-        wait_for_all_writes()
+        with span("diamond_io.wait_for_all_writes"):
+            wait_for_all_writes()
 
         one_plaintext = Poly.one(params, self.device)
         self._write(
@@ -694,7 +696,8 @@ class DiamondIO:
         if self._enc_plt_factory is not None:
             enc_eval = self._enc_plt_factory(self, d, obf, states, digits)
         else:
-            c_b = states[0] @ self._read(d, "lut_bridge")
+            with span("diamond_io.lut_bridge_encoding"):
+                c_b = states[0] @ self._read(d, "lut_bridge")
             enc_eval = LWEBGGEncodingPltEvaluator(obf.hash_key, d, c_b)
 
         prf = self._prf_pipeline()

@@ -105,7 +105,7 @@ class PrfMaskPipeline:
         if mesh is not None:
             raise NotImplementedError(
                 "PrfMaskPipeline runs on one device; sharding its preimages over a mesh "
-                "needs parallel/mesh.py, which is not ported (ROADMAP Queue 1, item 12)")
+                "needs parallel/mesh.py, and the port has no parallel/ module yet")
         self.params = params
         self.device = trap_sampler.device
         self.cfg = config

@@ -27,15 +27,7 @@ from ..ops.zq_matmul import zq_matmul
 from ..ring.poly import EVAL, Poly, residue_planes_from_ints
 from ..sampler import Trapdoor
 from .lwe import derive_a_lt_matrices_batch, derive_a_lt_matrix
-
-
-def _batched_const_values(params, polys) -> list[int]:
-    """Constant-poly values of many wires (on one device) with ONE
-    device-to-host copy: column 0 of each, stacked."""
-    if any(p is None for p in polys):
-        raise ValueError("LUT input must reveal its plaintext")
-    cols = torch.stack([p.data[:, 0] for p in polys]).cpu().numpy()  # [B, L]
-    return [int(params.reconstruct_coeff(c)) for c in cols]
+from .public_lut import lut_input_values
 
 
 def debug_trapdoor_preimage(params, trapdoor: Trapdoor, target: PolyMatrix) -> PolyMatrix:
@@ -143,7 +135,7 @@ class DebugBGGEncodingPltEvaluator:
         device."""
         device = self.secret_vec.data.device
         d = items[0][1].pubkey.matrix.nrow
-        zs = _batched_const_values(params, [it[1].plaintext for it in items])
+        zs = lut_input_values(params, [it[1].plaintext for it in items])
         y_vals = []
         for (plt, _input_enc, gate_id, lut_id), z in zip(items, zs):
             got = plt.get(params, z)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
 from ..ring.element import FinRingElem
 from ..ring.params import RingParams
 
@@ -52,3 +54,12 @@ class PublicLut:
         q = params.modulus
         frozen = {x: (k, FinRingElem(y, q)) for x, (k, y) in table.items()}
         return PublicLut(params, len(table), lambda _p, x: frozen.get(x))
+
+
+def lut_input_values(params: RingParams, polys) -> list[int]:
+    """The constant values of many LUT input plaintexts (on one device) with
+    ONE device-to-host copy: column 0 of each, stacked."""
+    if any(p is None for p in polys):
+        raise ValueError("LUT input must reveal its plaintext")
+    cols = torch.stack([p.data[:, 0] for p in polys]).cpu().numpy()  # [B, L]
+    return [int(params.reconstruct_coeff(c)) for c in cols]

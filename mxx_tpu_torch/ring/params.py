@@ -117,6 +117,9 @@ class RingParams:
         last_bits = self.crt_bits - self.base_bits * (self.digits_per_tower - 1)
         return (1 << last_bits) - 1
 
+    def to_crt(self) -> tuple[tuple[int, ...], int, int]:
+        return (self.moduli, self.crt_bits, self.crt_depth)
+
     # ----------------------------------------------------- host CRT helpers
 
     @functools.cached_property

@@ -3,6 +3,7 @@ from .store import (  # noqa: F401
     StorageSystem,
     add_lookup_buffer,
     get_lookup_buffer,
+    get_lookup_buffer_stacked,
     get_lookup_buffer_bytes,
     get_storage_system,
     init_storage_system,

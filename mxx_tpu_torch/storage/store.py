@@ -15,7 +15,8 @@ count * (u64 idx, u64 offset, u64 length) | payload blobs.
 Batch files are written by the native C++ writer (`native/writer.py`), as
 in the JAX package: `add_buffer` queues a file's header and payloads without
 copying them, and `wait_for_all_writes` is the barrier that also checks the
-writer reported no failed write. `get_lookup_buffer` copies a buffer's
+writer reported no failed write. `get_lookup_buffer` (or
+`get_lookup_buffer_stacked`, for blocks of stacked matrices) copies a buffer's
 matrices to the host with one device-to-host copy, and the readers load a
 matrix onto the device the caller names.
 """
@@ -65,6 +66,25 @@ class BatchLookupBuffer:
         return 8 + 24 * len(self.payloads) + sum(len(raw) for _, raw in self.payloads)
 
 
+def _coalesce(parts: list, small: int = 1 << 20) -> list:
+    """The parts of a file with each run of parts under `small` bytes joined
+    into one: the writer then takes a few pointers per file, not one per
+    small payload, and no large payload is copied."""
+    out: list = []
+    run: list = []
+    for part in parts:
+        if len(part) < small:
+            run.append(part)
+            continue
+        if run:
+            out.append(b"".join(run))
+            run = []
+        out.append(part)
+    if run:
+        out.append(b"".join(run))
+    return out
+
+
 def _read_table(f, path: Path) -> list[tuple[int, int, int]]:
     """The (idx, offset, length) table of an open batch file; leaves the
     file at the first payload byte."""
@@ -87,6 +107,7 @@ class StorageSystem:
         self._futures: list[Future] = []
         self._index_lock = threading.Lock()
         self._index: dict[str, dict] = {}
+        self._encoded: dict[str, tuple[int, str]] = {}  # prefix -> (parts, its JSON)
         self._writes_since_sync = 0
         self._write_errors_at_start = write_errors()
         self._load_index()
@@ -102,9 +123,22 @@ class StorageSystem:
             except (json.JSONDecodeError, OSError):
                 self._index = {}
 
+    def _encode_index(self, entries: dict) -> str:
+        """`json.dumps({"entries": entries})`, character for character, from
+        a cache of each entry's encoding: an entry changes only when its
+        prefix gains a part, so a flush encodes only the entries that did."""
+        frags = []
+        for prefix, entry in entries.items():
+            hit = self._encoded.get(prefix)
+            if hit is None or hit[0] != entry["parts"]:
+                hit = self._encoded[prefix] = (entry["parts"],
+                                               f"{json.dumps(prefix)}: {json.dumps(entry)}")
+            frags.append(hit[1])
+        return '{"entries": {' + ", ".join(frags) + "}}"
+
     def _write_index_atomic(self, entries: dict):
         tmp = self._index_path().with_suffix(".index.tmp")
-        tmp.write_text(json.dumps({"entries": entries}))
+        tmp.write_text(self._encode_index(entries))
         os.replace(tmp, self._index_path())
 
     def _flush_index(self):
@@ -153,14 +187,16 @@ class StorageSystem:
             if sync_due:
                 self._writes_since_sync = 0
         path = self._batch_file(buffer.id_prefix, part)
-        submit_write(path, [buffer.header()] + [raw for _, raw in buffer.payloads])
+        submit_write(path, _coalesce([buffer.header()] + [raw for _, raw in buffer.payloads]))
         event("storage.write_part", prefix=buffer.id_prefix, part=part, bytes=buffer.nbytes())
         if sync_due:
             # periodic index flush so long offline passes are resumable
             # without a final wait_for_all_writes; it runs after a barrier on
             # everything submitted so far
             with self._index_lock:
-                snapshot = json.loads(json.dumps(self._index))
+                # an entry's index list is replaced, never changed in place,
+                # so copying the entries' dicts is enough
+                snapshot = {k: dict(v) for k, v in self._index.items()}
             self._futures.append(self._pool.submit(self._flush_index_durable, snapshot))
 
     def wait_for_all_writes(self):
@@ -248,26 +284,42 @@ def get_lookup_buffer(matrices: list, id_prefix: str) -> BatchLookupBuffer:
     The matrices (of one shape, on one device) are stacked as uint32 planes
     on their device and copied to the host in ONE device-to-host copy; a
     per-matrix copy would synchronize once per matrix."""
-    from ..matrix.poly_matrix import compact_header
-
     if not matrices:
         return BatchLookupBuffer(id_prefix, [])
     first = matrices[0][1]
-    with span("storage.device_to_host", prefix=id_prefix, matrices=len(matrices)):
+    for _, m in matrices:
+        if m.data.shape != first.data.shape:
+            raise ValueError(f"a lookup buffer holds matrices of one shape: "
+                             f"{tuple(m.data.shape)} != {tuple(first.data.shape)}")
+    return get_lookup_buffer_stacked(first.params, [m.fmt for _, m in matrices],
+                                     [i for i, _ in matrices],
+                                     [m.data[None] for _, m in matrices], id_prefix)
+
+
+def get_lookup_buffer_stacked(params, fmts, idxs: list[int], blocks: list,
+                              id_prefix: str) -> BatchLookupBuffer:
+    """The buffer `get_lookup_buffer` makes, from blocks of the matrices'
+    residues stacked on their device (each [count, L, nrow, ncol, n], below
+    2^31; in `idxs` order) and their forms (one for all, or one each): the
+    blocks are gathered on the device and copied to the host in one copy."""
+    from ..matrix.poly_matrix import compact_header
+
+    if isinstance(fmts, str):
+        fmts = [fmts] * len(idxs)
+    with span("storage.device_to_host", prefix=id_prefix, matrices=len(idxs)):
         # residues are below 2^31, so int32 holds them and views as uint32
-        stacked = torch.empty((len(matrices),) + tuple(first.data.shape), dtype=torch.int32,
-                              device=first.data.device)
-        for i, (_, m) in enumerate(matrices):
-            if m.data.shape != first.data.shape:
-                raise ValueError(f"a lookup buffer holds matrices of one shape: "
-                                 f"{tuple(m.data.shape)} != {tuple(first.data.shape)}")
-            stacked[i].copy_(m.data)
+        stacked = torch.empty((len(idxs),) + tuple(blocks[0].shape[1:]), dtype=torch.int32,
+                              device=blocks[0].device)
+        pos = 0
+        for block in blocks:
+            stacked[pos : pos + len(block)].copy_(block)
+            pos += len(block)
         host = stacked.cpu().numpy()
-    with span("storage.serialize", prefix=id_prefix, matrices=len(matrices)):
-        payloads = []
-        for (idx, m), planes in zip(matrices, host):
-            header = compact_header(first.params, m.fmt, m.nrow, m.ncol)
-            payloads.append((idx, b"".join([header, planes.view(np.uint32).data])))
+        del stacked
+    with span("storage.serialize", prefix=id_prefix, matrices=len(idxs)):
+        headers = {f: compact_header(params, f, host.shape[2], host.shape[3]) for f in set(fmts)}
+        payloads = [(idx, b"".join([headers[f], planes.view(np.uint32).data]))
+                    for idx, f, planes in zip(idxs, fmts, host)]
     return BatchLookupBuffer(id_prefix, payloads)
 
 

@@ -54,10 +54,18 @@ def real_config(ns):
                             debug_reuse_single_material=False, refresh_wire_limit=None)
 
 
-def make_dio(ns, ring, seed, cfg, input_count=2, payload_slots=1):
+def production_config(ns):
+    # tests/test_production_lwe_diamond.py
+    return ns.prf.PrfConfig(seed_bits=2, prf_mask_output_coeff_bits=1, p_moduli_bits=5,
+                            max_unreduced_muls=1, noise_refresh_v_bits=1, nested_rns_scale=64,
+                            debug_encrypt_random_prg_wires=True,
+                            debug_reuse_single_material=True, refresh_wire_limit=1)
+
+
+def make_dio(ns, ring, seed, cfg, input_count=2, payload_slots=1, **extra):
     return ns.dio.DiamondIO(
         ns.params.RingParams.new(*ring), input_count=input_count, batch_bits=1, seed=seed,
-        prf_config=cfg, payload_slots=payload_slots, **ns.kw,
+        prf_config=cfg, payload_slots=payload_slots, **ns.kw, **extra,
         pk_plt_evaluator_factory=lambda s, d, hk, pre: ns.debug.DebugBGGPubKeyPltEvaluator(hk),
         enc_plt_evaluator_factory=lambda s, d, obf, states, digits:
             ns.debug.DebugBGGEncodingPltEvaluator(
@@ -74,15 +82,20 @@ def first_bit_builder(circuit, bits):
 
 
 MODES = {
-    "scalar_debug": ((4, 3, 10, 10), ci_config, 1, 2, xor_and_builder),
-    "packed_debug": ((8, 3, 10, 10), ci_config, 4, 2, xor_and_builder),
-    "real": ((2, 2, 9, 9), real_config, 1, 1, first_bit_builder),
+    "scalar_debug": ((4, 3, 10, 10), ci_config, 1, 2, xor_and_builder, {}),
+    "packed_debug": ((8, 3, 10, 10), ci_config, 4, 2, xor_and_builder, {}),
+    "real": ((2, 2, 9, 9), real_config, 1, 1, first_bit_builder, {}),
+    # tests/test_production_lwe_diamond.py (21,039 gates)
+    "production_lwe": ((4, 3, 10, 10), production_config, 1, 1, first_bit_builder, {}),
+    # tests/test_diamond_io.py `test_diamond_io_d2_vec_slots_e2e` (42,080 gates)
+    "d2_vec": ((4, 3, 10, 10), ci_config, 1, 2, xor_and_builder,
+               {"secret_size": 2, "num_slots": 4}),
 }
 
 
 def _wrapped(ns, mode):
-    ring, cfg, slots, inputs, builder = MODES[mode]
-    dio = make_dio(ns, ring, 42, cfg(ns), inputs, slots)
+    ring, cfg, slots, inputs, builder, extra = MODES[mode]
+    dio = make_dio(ns, ring, 42, cfg(ns), inputs, slots, **extra)
     dio._hash_key = KEY
     prf = dio._prf_pipeline()
     params = dio.params
@@ -92,10 +105,10 @@ def _wrapped(ns, mode):
     else:
         unit = (params.modulus // 3, params.modulus // 5)
     debug = ns.prf.PrfDebugArtifacts()
-    if mode == "scalar_debug":
-        debug.final_mask_cts = [prf._sample_debug_prg_cts(-1, dio._mask_bits_per_output(), rng,
-                                                          0.0) for _ in range(2)]
     n_out = dio._probe_num_outputs(builder)
+    if slots == 1 and dio.prf_config.debug_encrypt_random_prg_wires:
+        debug.final_mask_cts = [prf._sample_debug_prg_cts(-1, dio._mask_bits_per_output(), rng,
+                                                          0.0) for _ in range(n_out)]
     return params, dio._build_wrapped_circuit(prf, builder, unit, n_out, debug)
 
 

@@ -98,6 +98,12 @@ def jax_matrix(jx, jp, m):
     return jx.PolyMatrix(convert.to_numpy(m), m.fmt, jp)
 
 
+def jax_encoding(jx, jp, e):
+    jpk = jx.BggPublicKey(jax_matrix(jx, jp, e.pubkey.matrix), e.pubkey.reveal_plaintext)
+    pt = jx.Poly(convert.to_numpy(e.plaintext), e.plaintext.fmt, jp)
+    return jx.BggEncoding(jax_matrix(jx, jp, e.vector), jpk, pt)
+
+
 # ------------------------------------------------------------ hash derivations
 
 
@@ -149,7 +155,8 @@ class _RecordingSampler:
     def __init__(self):
         self.targets = []
 
-    def preimage_batched_chunked(self, params, trapdoor, public_matrix, targets, mesh=None):
+    def preimage_batched_chunked(self, params, trapdoor, public_matrix, targets, mesh=None,
+                                 chunk=None):
         self.targets.append(list(targets))
         return list(targets)
 
@@ -191,17 +198,22 @@ def test_offline_targets_and_batch_files_equal_jax(jx, tmp_path, monkeypatch):
     jx.storage.wait_for_all_writes()
 
     np.testing.assert_array_equal(convert.to_numpy(out_pk[0].matrix), np.asarray(jout_pk[0].matrix.data))
-    assert len(stub.targets) == len(jstub.targets) == 2
-    for (ctx, gate_id, slot), st in states.items():
+    # the JAX package samples gate by gate, one request per entry; the port's
+    # two gates share one call, one request per gate, its entries side by side
+    assert len(jstub.targets) == 2 and len(stub.targets) == 1 and len(stub.targets[0]) == 2
+    m_g = p.modulus_digits
+    mine = [req.slice_columns(e * m_g, (e + 1) * m_g) for req in stub.targets[0]
+            for e in range(req.ncol // m_g)]
+    theirs = [t for call in jstub.targets for t in call]
+    assert len(mine) == len(theirs) == 2 * P_MOD * P_MOD
+    for i, ((ctx, gate_id, slot), st) in enumerate(states.items()):
         direct = pk_eval._k_high_targets(p, st.plt, st.input_pubkey, st.output_pubkey,
                                          gate_id, st.lut_id, slot, ctx)
-        recorded = stub.targets[list(states).index((ctx, gate_id, slot))]
-        assert all(a == b for a, b in zip(direct, recorded))
-    for mine, theirs in zip(stub.targets, jstub.targets):
-        assert len(mine) == len(theirs) == P_MOD * P_MOD
-        for t, jt in zip(mine, theirs):
-            assert t.fmt == jt.fmt
-            np.testing.assert_array_equal(convert.to_numpy(t), np.asarray(jt.data))
+        recorded = mine[i * P_MOD * P_MOD : (i + 1) * P_MOD * P_MOD]
+        assert len(direct) == len(recorded) and all(a == b for a, b in zip(direct, recorded))
+    for t, jt in zip(mine, theirs):
+        assert t.fmt == jt.fmt
+        np.testing.assert_array_equal(convert.to_numpy(t), np.asarray(jt.data))
     assert len(buffers["port"]) == len(buffers["jax"]) == 2
     for b, jb in zip(buffers["port"], buffers["jax"]):
         assert b.id_prefix == jb.id_prefix and b.serialize() == jb.serialize()
@@ -306,10 +318,100 @@ def test_port_chain_with_every_target_spilled(tmp_path, monkeypatch):
     decodes and every stored row is exact."""
     monkeypatch.setenv("MXX_OFFLOAD_BUDGET_BYTES", "1")
     run = run_port_chain(tmp_path, torch.device("cpu"), abc=(6, 4, 5))
-    assert run.offloaded == P_MOD * P_MOD  # the last gate's count: all spilled
+    assert run.offloaded == 2 * P_MOD * P_MOD  # the last group's count (both gates): all spilled
     expected, err, q_over_p, mask_ok = decode(run)
     assert run.out_enc.plaintext.const_coeff() == expected
     assert run.out_enc.pubkey == run.out_pk
+    assert err < q_over_p // 2 and mask_ok
+    assert check_stored_rows(run) == 2 * P_MOD * P_MOD
+
+
+@pytest.mark.parametrize("slots", [None, [2, 0, 1]])
+def test_lut_level_batches_equal_per_gate(jx, tmp_path, slots):
+    """One level of three LUT gates through `public_lookup_batch` of both
+    LWE evaluators (as `eval_batched` hands them over) equals the JAX
+    package's per-gate `public_lookup`: the same A_LT and gate records
+    offline; every stored row exact after the gates' shared preimage call;
+    online, over the port's stored K_high, the same c_out, A_LT and
+    plaintext, bit for bit, and each output decodes."""
+    p, jp = RingParams.new(*ARGS), jx.RingParams.new(*ARGS)
+    q = p.modulus
+    lut, jlut = mod_p_lut(PublicLut, p), mod_p_lut(jx.PublicLut, jp)
+    xs = (3, 40, 17)
+    pubkeys = BGGPublicKeySampler(KEY, 1, device="cpu").sample(p, b"bgg_pubkey", [True] * 3)
+    secret = UniformSampler(seed=77, device="cpu").sample_poly(p, TernaryDist())
+    es = BGGEncodingSampler(p, [secret], gauss_sigma=ERROR_SIGMA, seed=78)
+    encodings = es.sample(p, pubkeys, [Poly.const(p, x, "cpu") for x in xs])
+    ts = TrapdoorSampler(p, TRAPDOOR_SIGMA, seed=79, device="cpu")
+    td, b0 = ts.trapdoor(p, 1)
+    gates = [7, 8, 9]
+    per_slot = slots or [None] * 3
+
+    def assert_same(mine, theirs):
+        mine = mine.to_coeff() if theirs.fmt == "coeff" else mine.to_eval()
+        np.testing.assert_array_equal(convert.to_numpy(mine), np.asarray(theirs.data))
+
+    init_storage_system(tmp_path)
+    pk_eval = LWEBGGPubKeyPltEvaluator(KEY, ts, b0, td, tmp_path)
+    lwe.set_plt_context(pk_eval, "level")
+    bat = pk_eval.public_lookup_batch(p, [(lut, pk, g, 0) for pk, g in zip(pubkeys[1:], gates)],
+                                      slot_idxs=slots)
+    jpk_eval = jx.lwe.LWEBGGPubKeyPltEvaluator(KEY, None, jax_matrix(jx, jp, b0), None, tmp_path)
+    jx.lwe.set_plt_context(jpk_eval, "level")
+    seq = [jpk_eval.public_lookup(jp, jlut, None,
+                                  jx.BggPublicKey(jax_matrix(jx, jp, pk.matrix), True), g, 0,
+                                  slot_idx=s)
+           for pk, g, s in zip(pubkeys[1:], gates, per_slot)]
+    for a, b in zip(bat, seq):
+        assert_same(a.matrix, b.matrix)
+    states = dict(pk_eval.gate_state)
+    assert list(states) == list(jpk_eval.gate_state)
+    for key, st in states.items():
+        jst = jpk_eval.gate_state[key]
+        assert st.lut_id == jst.lut_id and st.context == jst.context
+        assert_same(st.input_pubkey, jst.input_pubkey)
+        assert_same(st.output_pubkey, jst.output_pubkey)
+    pk_eval.sample_aux_matrices(p)
+    wait_for_all_writes()
+    for (ctx, gate_id, slot), st in states.items():
+        targets = pk_eval._k_high_targets(p, st.plt, st.input_pubkey, st.output_pubkey,
+                                          gate_id, st.lut_id, slot, ctx)
+        prefix = lwe.k_high_checkpoint_prefix(gate_id, st.lut_id, slot, ctx)
+        for (_, (k, _)), t in zip(st.plt.entries(p), targets):
+            assert b0 @ read_matrix_from_multi_batch(p, tmp_path, prefix, k, "cpu") == t
+
+    c_b = es.secret_vec @ b0
+    enc_eval = LWEBGGEncodingPltEvaluator(KEY, tmp_path, c_b)
+    lwe.set_plt_context(enc_eval, "level")
+    bat_e = enc_eval.public_lookup_batch(
+        p, [(lut, e, g, 0) for e, g in zip(encodings[1:], gates)], slot_idxs=slots)
+    jenc_eval = jx.lwe.LWEBGGEncodingPltEvaluator(KEY, tmp_path, jax_matrix(jx, jp, c_b))
+    jx.lwe.set_plt_context(jenc_eval, "level")
+    seq_e = [jenc_eval.public_lookup(jp, jlut, None, jax_encoding(jx, jp, e), g, 0, slot_idx=s)
+             for e, g, s in zip(encodings[1:], gates, per_slot)]
+    s_g = es.secret_vec @ PolyMatrix.gadget_matrix(p, 1, "cpu")
+    for b, a, x, pk in zip(bat_e, seq_e, xs, bat):
+        assert_same(b.vector, a.vector)
+        assert_same(b.pubkey.matrix, a.pubkey.matrix)
+        assert b.pubkey.matrix == pk.matrix
+        mine_pt = b.plaintext.to_coeff() if a.plaintext.fmt == "coeff" else b.plaintext
+        np.testing.assert_array_equal(convert.to_numpy(mine_pt), np.asarray(a.plaintext.data))
+        assert b.plaintext.const_coeff() == x % P_MOD
+        diff = b.vector - es.secret_vec @ b.pubkey.matrix + s_g.mul_poly_scalar(b.plaintext)
+        coeff = diff.entry(0, 0).const_coeff()
+        assert min(coeff, q - coeff) < (q // P_MOD) // 2
+
+
+def test_port_chain_in_small_preimage_calls(tmp_path, monkeypatch):
+    """Calls of at most 5 entries: each gate's 49 entries are 10 requests,
+    sampled in calls of one request, and its rows are gathered from all of
+    them into one buffer; the chain still decodes and every stored row is
+    exact."""
+    monkeypatch.setattr(lwe, "PREIMAGE_CALL_BYTES", 1)
+    monkeypatch.setenv("LUT_PREIMAGE_CHUNK_SIZE", "5")
+    run = run_port_chain(tmp_path, torch.device("cpu"), abc=(2, 5, 3))
+    expected, err, q_over_p, mask_ok = decode(run)
+    assert run.out_enc.plaintext.const_coeff() == expected
     assert err < q_over_p // 2 and mask_ok
     assert check_stored_rows(run) == 2 * P_MOD * P_MOD
 
@@ -320,12 +422,7 @@ def test_online_c_out_equals_jax(jx, port_chain):
     run = port_chain
     p, jp = run.p, jx.RingParams.new(*ARGS)
 
-    def jenc(e):
-        jpk = jx.BggPublicKey(jax_matrix(jx, jp, e.pubkey.matrix), e.pubkey.reveal_plaintext)
-        pt = jx.Poly(convert.to_numpy(e.plaintext), e.plaintext.fmt, jp)
-        return jx.BggEncoding(jax_matrix(jx, jp, e.vector), jpk, pt)
-
-    jencs = [jenc(e) for e in run.encodings]
+    jencs = [jax_encoding(jx, jp, e) for e in run.encodings]
     jcircuit = chain_circuit(jx.PolyCircuit(), mod_p_lut(jx.PublicLut, jp))
     jenc_eval = jx.lwe.LWEBGGEncodingPltEvaluator(KEY, run.dir, jax_matrix(jx, jp, run.c_b))
     jout = jcircuit.eval(jp, jencs[0], jencs[1:], plt_evaluator=jenc_eval)[0]

@@ -60,6 +60,12 @@ def test_params_tables_equal(args):
     assert torch.equal(t.n_inv * r[:, 0] % t.moduli, _t(p.np_n_inv_mont))
 
 
+@pytest.mark.parametrize("args", [(4, 2, 17, 1), (16, 3, 24, 5), (8192, 8, 28, 14)])
+def test_to_crt_equal(args):
+    jp, p = JaxRingParams.new(*args), RingParams.new(*args)
+    assert p.to_crt() == jp.to_crt() == (jp.moduli, args[2], args[1])
+
+
 def test_u32_ops_equal():
     p = RingParams.new(16, 3, 30, 10)
     jp = JaxRingParams.new(16, 3, 30, 10)

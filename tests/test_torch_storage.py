@@ -7,6 +7,7 @@ offloaded matrices are shared too, and the streamed products equal the
 in-memory ones (tests/test_offload.py's checks)."""
 
 import importlib
+import json
 import struct
 
 import numpy as np
@@ -132,6 +133,21 @@ def test_periodic_index_flush_names_only_written_parts(tmp_path, monkeypatch):
     assert '"p0"' in index and '"p1"' in index and '"p2"' not in index
     wait_for_all_writes()
     assert '"p2"' in (tmp_path / "lookup_tables.index").read_text()
+
+
+@pytest.mark.parametrize("prefixes", [["a", "b", "a", "c", "a"], ["x"] * 4])
+def test_index_from_cached_entries_equals_json_dumps(tmp_path, prefixes):
+    """The index is written from a cache of each entry's JSON; after every
+    write (a prefix may gain parts between two) it is json.dumps of the
+    entries, character for character."""
+    p = RingParams.new(*ARGS)
+    store = init_storage_system(tmp_path)
+    for i, (prefix, m) in enumerate(zip(prefixes, _matrices(p, len(prefixes), 5))):
+        add_lookup_buffer(get_lookup_buffer([(i, m)], prefix))
+        wait_for_all_writes()
+        text = (tmp_path / "lookup_tables.index").read_text()
+        assert text == json.dumps({"entries": store._index})
+    assert store._index[prefixes[0]]["parts"] == prefixes.count(prefixes[0])
 
 
 def test_read_rejects_bad_and_truncated_files(tmp_path):

@@ -70,6 +70,15 @@ def test_w_blocks_match_jax():
         np.testing.assert_array_equal(_np(mine), _np(jx.scheme._w_block(jx.params, KEY, b)))
 
 
+@pytest.mark.parametrize("key", [KEY, bytes(32)])
+def test_checkpoint_prefix_matches_jax(key):
+    jx, pt = load("mxx_tpu"), load("mxx_tpu_torch")
+    assert pt.commit.wee25.WEE25_PUBLIC_PARAMS_PREFIX == jx.commit.wee25.WEE25_PUBLIC_PARAMS_PREFIX
+    mine = pt.scheme.checkpoint_prefix(pt.params, key)
+    assert mine == jx.scheme.checkpoint_prefix(jx.params, key)
+    assert mine.startswith("wee25_public_params_n4_L2_d1_tb2_key")
+
+
 def test_public_params_draws_and_relations(jax_pp):
     _, jpp, pt, _ = jax_pp
     p, scheme = pt.params, pt.scheme
