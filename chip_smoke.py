@@ -200,17 +200,44 @@ no package beside it, a kernel that does not build, launch or agree):
    memory. Phases 23 and 24 launch neither K1 nor K2 (n < 2048 takes
    the radix chain): they print their counts (0 / 0) and do not require
    launches;
-25. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+25. `mesh`: `parallel/` on the card. It prints the device count and the
+   shards of `make_mesh()` (one per card: 1x1 on a one-card machine) and of
+   two logical meshes whose shards all sit on the card (1x4 and 2x4); then
+   (i) `preimage_batched_sharded` at phase 4's ring and seeds over requests
+   of 17 / 17 / 16 columns: through `make_mesh()` equal bit for bit to the
+   unsharded call of a sampler with the same seed; through the 1x4 mesh (50
+   -> 52 columns) A x == U per request and each shard equal bit for bit to
+   `_preimage_core` under the call's key folded with its index, K1/K2
+   launched (counters reset before the call, read after); the median of 3
+   of each beside the unsharded call; (ii) over the 2x4 mesh at n=2^13,
+   L=8: the limb + column sharded `zq_matmul` of [2, 4] x [4, 8] and the
+   limb-sharded `ntt_fwd` of [8, 64, 8192] equal the unsharded results
+   (radix chain and K1) bit for bit; (iii) `crt_switch_sharded` of a
+   [2, 512] COEFF matrix there for P = 2, 251, 2^16: equal to
+   `PolyMatrix.modulus_switch(P)` everywhere and to the exact big-int rule
+   on 4,096 sampled coefficients, ms per call beside `modulus_switch`, and
+   the count of coefficients that independent per-shard float64 partials
+   would round otherwise; (iv) a mesh of two distinct devices, the card
+   and the host: at n=2^13, L=8 a 1x2 (card, host) preimage of requests
+   of 3 / 2 columns holds A x == U per request, comes back to the card,
+   and each shard equals `_preimage_core` run on its own device, bit for
+   bit; `crt_switch_sharded` over 2x1 (card, host) and (host, card) equals
+   `modulus_switch` for the three P; (v) phase 7's LWE chain with its
+   K_high preimages over the 1x4 mesh, every check of phase 7, its times
+   beside phase 7's;
+26. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, each kernel against its plain version at the largest transform of
    the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
    profiled batched encoding pass, its device time split by stage;
-26. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
+27. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
    path's count beside it in `launches_by_path`; each kernel's least time
    `bound_ms`, the larger of its device-memory time and its integer floor,
-   and its share `pct_of_bound`; `library_ms` null, since no PyTorch call
-   computes an exact NTT mod q), then the result line.
+   and its share `pct_of_bound`; beside it `bound_ms_u32`, the same bound
+   for the TPU kernel's uint32 layout, 8 bytes per residue; `library_ms`
+   null, since no PyTorch call computes an exact NTT mod q), then the
+   result line.
 """
 
 import json
@@ -289,11 +316,16 @@ def ntt_products(n: int, span: int, twist: bool = False) -> int:
 
 
 def ntt_bound(shape, products: int) -> dict:
+    """The bound of the port's int64 layout, and beside it the bound of the
+    TPU kernel's uint32 layout (8 bytes per residue read and written)."""
     polys = math.prod(shape[:-1])
     bytes_ms = 16 * polys * shape[-1] / HBM_BYTES_PER_S * 1e3
+    bytes_u32_ms = bytes_ms / 2
     int_ms = polys * products * INSTR_PER_PRODUCT / INT32_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, int_ms), "bound_by": "bytes" if bytes_ms >= int_ms
-            else "operations", "bytes_ms": bytes_ms, "int_floor_ms": int_ms}
+            else "operations", "bytes_ms": bytes_ms, "int_floor_ms": int_ms,
+            "bound_ms_u32": max(bytes_u32_ms, int_ms), "bytes_ms_u32": bytes_u32_ms,
+            "bound_by_u32": "bytes" if bytes_u32_ms >= int_ms else "operations"}
 
 
 def build_kernels(modules) -> None:
@@ -568,13 +600,14 @@ class SpanLog(logging.Handler):
         log.propagate = self._saved[1]
 
 
-def drive_lwe_lut(p, dev, timing) -> dict:
+def drive_lwe_lut(p, dev, timing, mesh=None, label="lwe lut chain") -> tuple[dict, dict]:
     """The LWE public-LUT chain of scripts/realistic_scale_run.py on the
     port: plaintext oracle, offline pubkey pass, K_high sampling and writes
-    (`sample_aux_matrices`, `wait_for_all_writes`), online encoding pass and
-    the masked-rounding decode; then every stored K_high row is read back
-    (each batch part once) and held to B K_high == target exactly. Returns
-    the K1/K2 launch counts of the chain."""
+    (`sample_aux_matrices`, `wait_for_all_writes`; K_high's preimages over
+    `mesh` if given), online encoding pass and the masked-rounding decode;
+    then every stored K_high row is read back (each batch part once) and
+    held to B K_high == target exactly. Returns the K1/K2 launch counts of
+    the chain and its sub-phase times (ms)."""
     import random
     import shutil
     import tempfile
@@ -620,11 +653,11 @@ def drive_lwe_lut(p, dev, timing) -> dict:
     want_bytes = n_luts * entries * row_bytes
     with tempfile.TemporaryDirectory(prefix="mxx_lwe_lut_") as tmp:
         free = shutil.disk_usage(tmp).free
-        print(f"lwe lut chain: K_high artifacts {n_luts} gates x {entries} rows x "
+        print(f"{label}: K_high artifacts {n_luts} gates x {entries} rows x "
               f"{row_bytes} B = {want_bytes} B to {tmp}; free there {free} B", flush=True)
         if free < 2 * want_bytes:
             raise SystemExit(f"chip_smoke: {tmp} has {free} B free, under twice the "
-                             f"{want_bytes} B of K_high artifacts the LWE LUT chain writes")
+                             f"{want_bytes} B of K_high artifacts the {label} writes")
         init_storage_system(tmp)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -640,7 +673,7 @@ def drive_lwe_lut(p, dev, timing) -> dict:
 
         pt = clock("plaintext oracle", lambda: circuit.eval(
             p, Poly.one(p, dev), plaintexts, plt_evaluator=PolyPltEvaluator())[0])
-        pk_eval = LWEBGGPubKeyPltEvaluator(BGG_KEY, trap, b0, td, tmp)
+        pk_eval = LWEBGGPubKeyPltEvaluator(BGG_KEY, trap, b0, td, tmp, mesh=mesh)
         out_pk = clock("pubkey pass", lambda: circuit.eval(
             p, pubkeys[0], pubkeys[1:], plt_evaluator=pk_eval)[0])
         states = dict(pk_eval.gate_state)
@@ -691,7 +724,7 @@ def drive_lwe_lut(p, dev, timing) -> dict:
         ok_rows = not bad and rows == n_luts * entries
         torch.cuda.synchronize()
     err_bits = math.log2(err) if err else 0.0
-    print(f"lwe lut chain n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits "
+    print(f"{label} n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits "
           f"{p.base_bits} d=1 p={P_MOD}, {entries}-entry LUT, {circuit.gate_counts()}: "
           f"plaintext == oracle {ok_oracle}, A_LT online == offline {ok_alt}, "
           f"B K_high == target for {rows - len(bad)} of {n_luts * entries} stored rows "
@@ -699,38 +732,37 @@ def drive_lwe_lut(p, dev, timing) -> dict:
           f"under the q/(2p) budget {budget} = 2^{math.log2(budget):.2f}); launches in the "
           f"chain: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
     if not all((ok_oracle, ok_alt, ok_rows, ok_decode)):
-        raise SystemExit(f"chip_smoke: LWE LUT chain check failed (bad rows {bad[:5]})")
+        raise SystemExit(f"chip_smoke: {label} check failed (bad rows {bad[:5]})")
 
     cols = sum(r.fields["cols"] for r in spans.records
                if getattr(r, "span", None) == "lwe_lut.k_high_preimages")
     writes = spans.events("storage.write_part")
-    pre_ms = spans.total_ms("lwe_lut.k_high_preimages")
+    pre_ms = ms["K_high preimages"] = spans.total_ms("lwe_lut.k_high_preimages")
     d2h_ms = spans.total_ms("storage.device_to_host")
     ser_ms = spans.total_ms("storage.serialize")
     for name in ("plaintext oracle", "pubkey pass"):
-        timing(f"lwe lut chain: {name}", ms[name], "ms")
-    timing("lwe lut chain: sample_aux_matrices", ms["sample_aux_matrices"], "ms",
+        timing(f"{label}: {name}", ms[name], "ms")
+    timing(f"{label}: sample_aux_matrices", ms["sample_aux_matrices"], "ms",
            f" ({n_luts} gates)")
-    timing("lwe lut chain: target assembly", spans.total_ms("lwe_lut.k_high_targets"), "ms",
+    timing(f"{label}: target assembly", spans.total_ms("lwe_lut.k_high_targets"), "ms",
            f" ({n_luts * entries} targets)")
-    timing("lwe lut chain: K_high preimages", cols / pre_ms * 1e3, "preimage-cols/s",
+    timing(f"{label}: K_high preimages", cols / pre_ms * 1e3, "preimage-cols/s",
            f" ({pre_ms:.1f} ms for {cols} cols)")
-    timing("lwe lut chain: device-to-host copy + serialize", d2h_ms + ser_ms, "ms",
+    timing(f"{label}: device-to-host copy + serialize", d2h_ms + ser_ms, "ms",
            f" ({want_bytes / (d2h_ms + ser_ms) / 1e6:.3f} GB/s; copy {d2h_ms:.1f} ms, "
            f"{want_bytes / d2h_ms / 1e6:.3f} GB/s; serialize {ser_ms:.1f} ms, "
            f"{want_bytes / ser_ms / 1e6:.3f} GB/s)")
-    timing("lwe lut chain: wait_for_all_writes (the native writer's barrier)",
+    timing(f"{label}: wait_for_all_writes (the native writer's barrier)",
            ms["wait_for_all_writes"], "ms",
            f" ({written} B in {parts} batch files, {len(writes)} queued to the C++ writer "
            f"without a copy; {host_note})")
-    timing("lwe lut chain: encoding pass", ms["encoding pass"], "ms")
-    timing("lwe lut chain: decode", ms["decode"], "ms")
-    print(f"lwe lut chain: bytes written {written} (reckoned {want_bytes} of payloads)",
+    timing(f"{label}: encoding pass", ms["encoding pass"], "ms")
+    timing(f"{label}: decode", ms["decode"], "ms")
+    print(f"{label}: bytes written {written} (reckoned {want_bytes} of payloads)",
           flush=True)
-    timing("lwe lut chain: peak device memory", peak / 1e9, "GB")
-    if counts["fwd"] == 0 or counts["inv"] == 0:
-        raise SystemExit("chip_smoke: the LWE LUT chain did not go through both four-step kernels")
-    return counts
+    timing(f"{label}: peak device memory", peak / 1e9, "GB")
+    require_launches(label, counts)
+    return counts, ms
 
 
 def drive_debug_lut(p, dev) -> None:
@@ -3095,6 +3127,236 @@ def drive_diamond_io_noise(dev, timing) -> dict:
             "observed_bits": observed_bits, "bound_bits": bound_bits}
 
 
+MESH_REQUESTS = (17, 17, 16)  # the bench preimage's 50 columns as three requests
+MESH_PRE_RING = (16384, 10, 24, 12)  # phase 4's ring
+MESH_RING = (8192, 8, 28, 14)  # the limb x column, switch and LWE chain ring
+MESH_MODULI = (2, 251, 1 << 16)
+MIXED_REQUESTS = (3, 2)  # the card-and-host mesh's preimage requests, at MESH_RING
+
+
+def drive_mesh(dev, timing, lwe_ms) -> dict:
+    """`parallel/` and the mesh-sharded preimage on the card: the real mesh
+    of `make_mesh()` (1x1 on a one-card machine) and logical meshes whose
+    shards all sit on `dev`. Returns the K1/K2 counts of the 1x4 sharded
+    preimage and of the LWE chain over the 1x4 mesh."""
+    import numpy as np
+    import torch
+
+    from mxx_tpu_torch.matrix import PolyMatrix
+    from mxx_tpu_torch.ops import four_step
+    from mxx_tpu_torch.ops.zq_matmul import zq_matmul
+    from mxx_tpu_torch.parallel import (
+        LIMB_AXIS,
+        Mesh,
+        Sharding,
+        crt_switch_sharded,
+        make_mesh,
+        matrix_sharding,
+        table_sharding,
+    )
+    from mxx_tpu_torch.ring import ntt
+    from mxx_tpu_torch.ring.params import RingParams
+    from mxx_tpu_torch.ring.poly import COEFF
+    from mxx_tpu_torch.sampler import FinRingDist, TrapdoorSampler, UniformSampler, chacha
+    from mxx_tpu_torch.sampler.trapdoor import _preimage_core, preimage_smoothing_parameter
+
+    t_phase = time.perf_counter()
+    card_mesh = make_mesh(device=dev)
+    m14 = Mesh([[dev] * 4])
+    m24 = Mesh([[dev] * 4] * 2)
+    print(f"mesh: torch.cuda.device_count() {torch.cuda.device_count()}", flush=True)
+    for name, m in (("make_mesh()", card_mesh), ("logical 1x4", m14), ("logical 2x4", m24)):
+        print(f"mesh: {name}: shape {m.shape}, shards on "
+              f"{[[str(d) for d in row] for row in m.devices]}", flush=True)
+    if card_mesh.size != torch.cuda.device_count():
+        raise SystemExit("chip_smoke: make_mesh() does not hold one shard per card")
+
+    # the sharded preimage at the bench shape
+    pp = RingParams.new(*MESH_PRE_RING)
+    ts = TrapdoorSampler(pp, 4.578, seed=2, device=dev)
+    twin = TrapdoorSampler(pp, 4.578, seed=2, device=dev)
+    td, a = ts.trapdoor(pp, 1)
+    us = UniformSampler(seed=3, device=dev)
+    targets = [us.sample_uniform(pp, 1, w, FinRingDist()) for w in MESH_REQUESTS]
+    got = ts.preimage_batched_sharded(pp, td, a, targets, mesh=card_mesh)
+    want = twin.preimage_batched_sharded(pp, td, a, targets)
+    same_card = all(torch.equal(g.data, w.data) for g, w in zip(got, want))
+    del got, want
+    torch.cuda.synchronize()
+    four_step.launches.update(fwd=0, inv=0)
+    xs = ts.preimage_batched_sharded(pp, td, a, targets, mesh=m14)
+    torch.cuda.synchronize()
+    counts = dict(four_step.launches)
+    exact = all(x.ncol == t.ncol and (a @ x) == t for x, t in zip(xs, targets))
+    total = sum(MESH_REQUESTS)
+    width = -(-total // 4)
+    combined = targets[0].to_eval().concat_columns(targets[1:])
+    padded = combined.concat_columns([combined.slice_columns(total - 1, total)]
+                                     * (4 * width - total))
+    out = xs[0].concat_columns(xs[1:]).data
+    del xs
+    s = preimage_smoothing_parameter(ts.base, ts.sigma, 1, pp.n, pp.modulus_digits)
+    ops = ts._operands(td, a, s)
+    call_key = chacha.fold_in(ts._key, ts._ctr)
+    shard_err = 0
+    for j in range(4):
+        ref = _preimage_core(pp, chacha.fold_in(call_key, j),
+                             padded.slice_columns(j * width, (j + 1) * width), *ops,
+                             sigma=ts.sigma, c=ts.c, s=s).data
+        cols = min(width, total - j * width)
+        shard_err = max(shard_err, max_err(out[:, :, j * width:j * width + cols],
+                                           ref[:, :, :cols]))
+    del out, ref
+    print(f"mesh: preimage n={pp.n} L={pp.crt_depth} d=1, requests {list(MESH_REQUESTS)}: make_mesh() "
+          f"{card_mesh.shape} == unsharded call {same_card}; logical 1x4 ({total} -> "
+          f"{4 * width} columns, {width} per shard): A x == U per request {exact}, max |shard "
+          f"- _preimage_core under fold_in(key, j)| {shard_err} (tolerance 0); launches in "
+          f"the 1x4 call: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
+    if not (same_card and exact and shard_err == 0):
+        raise SystemExit("chip_smoke: sharded preimage check failed")
+    require_launches("mesh", counts)
+    ms_1x4 = cuda_ms(lambda: ts.preimage_batched_sharded(pp, td, a, targets, mesh=m14), 3)
+    ms_card = cuda_ms(lambda: ts.preimage_batched_sharded(pp, td, a, targets, mesh=card_mesh), 3)
+    ms_one = cuda_ms(lambda: ts.preimage_batched_sharded(pp, td, a, targets), 3)
+    timing("mesh: preimage 50 cols over the logical 1x4 mesh", ms_1x4, "ms per call",
+           f" ({ms_1x4 / ms_one:.2f}x the unsharded call's {ms_one:.1f} ms; make_mesh() "
+           f"{card_mesh.shape}: {ms_card:.1f} ms)")
+    del ts, twin, td, a, targets, combined, padded, ops
+    torch.cuda.empty_cache()
+
+    # limb x column sharding over the logical 2x4 mesh
+    p = RingParams.new(*MESH_RING)
+    t = p.tables(dev)
+    am, bm = residues(p, (2, 4), 11, dev), residues(p, (4, 8), 12, dev)
+    sa = matrix_sharding(m24).split(am)
+    sb = matrix_sharding(m24, shard_cols=True).split(bm)
+    sq = table_sharding(m24).split(t.moduli)
+    mm = matrix_sharding(m24, shard_cols=True).join(
+        [[zq_matmul(sa[i][j], sb[i][j], sq[i][j]) for j in range(4)] for i in range(2)])
+    mm_err = max_err(mm, zq_matmul(am, bm, t.moduli))
+    x = residues(p, (64,), 13, dev)
+    limbs = Sharding(m24, (LIMB_AXIS,))
+    sx, sp, sl = limbs.split(x), limbs.split(t.psi_rev), limbs.split(t.moduli)
+    # a limb shard holds 4 of the 8 limbs: it takes the radix chain with its
+    # own limbs' tables (K1 takes all L limbs' tables)
+    fwd = limbs.join([[ntt.ntt_fwd(sx[i][j], sp[i][j], sl[i][j]) for j in range(4)]
+                      for i in range(2)])
+    ntt_err = max(max_err(fwd, ntt.ntt_fwd(x, t.psi_rev, t.moduli)),
+                  max_err(fwd, ntt.ntt_fwd_auto(x, p)))
+    print(f"mesh: logical 2x4, n={p.n} L={p.crt_depth}: zq_matmul [2, 4] x [4, 8] limb + "
+          f"column sharded, max |sharded - unsharded| {mm_err}; ntt_fwd of {list(x.shape)} "
+          f"limb sharded, max |sharded - unsharded (radix chain, and ntt_fwd_auto: K1 on the "
+          f"card)| {ntt_err} (tolerance 0)", flush=True)
+    if mm_err or ntt_err:
+        raise SystemExit("chip_smoke: limb x column sharding check failed")
+    del am, bm, sa, sb, sq, mm, x, sx, sp, sl, fwd
+
+    # crt_switch_sharded over the logical 2x4 mesh
+    q = p.modulus
+    data = residues(p, (2, 512), 14, dev)
+    m = PolyMatrix(data, COEFF, p)
+    flat = data.reshape(p.crt_depth, -1)
+    sample = torch.from_numpy(np.random.default_rng(15).choice(flat.shape[1], 4096,
+                                                               replace=False)).to(dev)
+    host = flat[:, sample].cpu().numpy()
+    coeffs = [p.reconstruct_coeff(host[:, k]) for k in range(host.shape[1])]
+    for P in MESH_MODULI:
+        got = crt_switch_sharded(p, data, P, m24)
+        mism_ms = int((got != m.modulus_switch(P).data[0]).sum())  # P is below every q_t
+        exact = np.array([(c * P + q // 2) // q % P for c in coeffs], dtype=np.int64)
+        mism_exact = int((got.reshape(-1)[sample].cpu().numpy() != exact).sum())
+        # the JAX package's order, for comparison: independent per-limb-shard
+        # partials (each shard's limbs in order), added at the end
+        fracs = p.ms_tables(P)[1]
+        parts = []
+        for i in range(2):
+            acc = torch.zeros(data.shape[1:], dtype=torch.float64, device=dev)
+            for limb in range(4 * i, 4 * i + 4):
+                acc = acc + data[limb].to(torch.float64) * float(fracs[limb])
+            parts.append(acc)
+        seq = torch.zeros(data.shape[1:], dtype=torch.float64, device=dev)
+        for limb in range(p.crt_depth):
+            seq = seq + data[limb].to(torch.float64) * float(fracs[limb])
+
+        def rounded(fr):
+            return torch.floor(fr) + (fr - torch.floor(fr) >= 0.5).to(torch.float64)
+
+        flips = int((rounded(parts[0] + parts[1]) != rounded(seq)).sum())
+        del parts, seq
+        ms_sw = cuda_ms(lambda: crt_switch_sharded(p, data, P, m24), 5)
+        ms_ms = cuda_ms(lambda: m.modulus_switch(P), 5)
+        print(f"mesh: crt_switch_sharded P={P} over the logical 2x4 mesh, [2, 512] at "
+              f"n={p.n} L={p.crt_depth} ({got.numel()} coefficients): {mism_ms} mismatches against "
+              f"PolyMatrix.modulus_switch, {mism_exact} of {len(coeffs)} sampled coefficients "
+              f"against the exact big-int rule (tolerance 0); independent per-shard partials "
+              f"would round {flips} coefficients otherwise", flush=True)
+        timing(f"mesh: crt_switch_sharded P={P} [2, 512] n={p.n} L={p.crt_depth}, logical 2x4",
+               ms_sw,
+               "ms per call", f" (PolyMatrix.modulus_switch {ms_ms:.3f} ms)")
+        if mism_ms or mism_exact:
+            raise SystemExit(f"chip_smoke: crt_switch_sharded P={P} check failed")
+        del got
+    del data, m, flat
+    torch.cuda.empty_cache()
+
+    # a mesh of two distinct devices, the card and the host: operands, keys,
+    # column shards and limb shards are copied between them and gathered back
+    cpu = torch.device("cpu")
+    mixed = Mesh([[dev, cpu]])
+    ts = TrapdoorSampler(p, 4.578, seed=4, device=dev)
+    td, a = ts.trapdoor(p, 1)
+    us = UniformSampler(seed=5, device=dev)
+    targets = [us.sample_uniform(p, 1, w, FinRingDist()) for w in MIXED_REQUESTS]
+    xs = ts.preimage_batched_sharded(p, td, a, targets, mesh=mixed)
+    exact = all(x.ncol == t.ncol and x.data.device == a.data.device and (a @ x) == t
+                for x, t in zip(xs, targets))
+    total = sum(MIXED_REQUESTS)
+    width = -(-total // 2)
+    combined = targets[0].to_eval().concat_columns(targets[1:])
+    padded = combined.concat_columns([combined.slice_columns(total - 1, total)]
+                                     * (2 * width - total))
+    out = xs[0].concat_columns(xs[1:]).data
+    s = preimage_smoothing_parameter(ts.base, ts.sigma, 1, p.n, p.modulus_digits)
+    call_key = chacha.fold_in(ts._key, ts._ctr)
+    shard_err = 0
+    for j, shard_dev in enumerate((dev, cpu)):
+        shard = padded.slice_columns(j * width, (j + 1) * width)
+        ref = _preimage_core(p, chacha.fold_in(call_key.to(shard_dev), j),
+                             PolyMatrix(shard.data.to(shard_dev), shard.fmt, p),
+                             *ts._operands(td, a, s, shard_dev), sigma=ts.sigma, c=ts.c,
+                             s=s).data
+        cols = min(width, total - j * width)
+        shard_err = max(shard_err, max_err(out[:, :, j * width:j * width + cols],
+                                           ref[:, :, :cols].to(dev)))
+    data = residues(p, (2, 512), 16, dev)
+    m = PolyMatrix(data, COEFF, p)
+    switch_err = 0
+    for order in ([dev, cpu], [cpu, dev]):
+        for P in MESH_MODULI:
+            got = crt_switch_sharded(p, data, P, Mesh([[d] for d in order]))
+            switch_err = max(switch_err, max_err(got.to(dev), m.modulus_switch(P).data[0]))
+    print(f"mesh: the card and the host, {mixed.shape}: preimage n={p.n} L={p.crt_depth} d=1, "
+          f"requests {list(MIXED_REQUESTS)}: A x == U per request, gathered on the card "
+          f"{exact}, max |shard - _preimage_core on the shard's device| {shard_err}; "
+          f"crt_switch_sharded over 2x1 (card, host) and (host, card), P in "
+          f"{list(MESH_MODULI)}: max |sharded - modulus_switch| {switch_err} (tolerance 0)",
+          flush=True)
+    if not exact or shard_err or switch_err:
+        raise SystemExit("chip_smoke: the card-and-host mesh check failed")
+    del ts, td, a, targets, xs, combined, padded, out, ref, data, m
+    torch.cuda.empty_cache()
+
+    # the LWE LUT chain's offline K_high phase over the logical 1x4 mesh
+    label = "mesh: lwe lut chain over a logical 1x4 mesh"
+    lut_counts, lut_mesh_ms = drive_lwe_lut(p, dev, timing, mesh=m14, label=label)
+    for name in ("sample_aux_matrices", "K_high preimages"):
+        timing(f"{label}: {name} beside the unsharded chain", lut_mesh_ms[name], "ms",
+               f" ({lut_mesh_ms[name] / lwe_ms[name]:.2f}x the unsharded chain's "
+               f"{lwe_ms[name]:.1f} ms)")
+    timing("mesh: the whole phase", (time.perf_counter() - t_phase) * 1e3, "ms")
+    return {"preimage": counts, "lwe": lut_counts}
+
+
 def main() -> None:
     import torch
 
@@ -3161,7 +3423,7 @@ def main() -> None:
     drive_debug_lut(RingParams.new(8192, 8, 28, 14), dev)
 
     # 7. the LWE public-LUT chain at the realistic-scale workload
-    lut_counts = drive_lwe_lut(RingParams.new(8192, 8, 28, 14), dev, timing)
+    lut_counts, lut_ms = drive_lwe_lut(RingParams.new(8192, 8, 28, 14), dev, timing)
     torch.cuda.empty_cache()
 
     # 8. Diamond witness encryption at the same ring
@@ -3237,7 +3499,11 @@ def main() -> None:
     noise_dio_counts = drive_diamond_io_noise(dev, timing)["launches"]
     torch.cuda.empty_cache()
 
-    # 25. timings
+    # 25. parallel/: the card's mesh and logical meshes on the card
+    mesh = drive_mesh(dev, timing, lut_ms)
+    torch.cuda.empty_cache()
+
+    # 26. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -3305,7 +3571,9 @@ def main() -> None:
                    "estimators": est_counts[d], "core ops": core_counts[d],
                    "ckks": ckks_counts[d], "montgomery": mont_counts[d],
                    "ntt circuit": nttc_counts[d], "diamond io lwe": lwe_dio_counts[d],
-                   "diamond io noise": noise_dio_counts[d]}
+                   "diamond io noise": noise_dio_counts[d],
+                   "mesh (1x4 sharded preimage)": mesh["preimage"][d],
+                   "mesh (lwe lut chain over 1x4)": mesh["lwe"][d]}
                for d in ("fwd", "inv")}
     cases = [
         ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
@@ -3342,12 +3610,15 @@ def main() -> None:
         bound = ntt_bound(xm.shape, products)
         extra = (f" kernel ({100 * bound['bound_ms'] / ms:.1f}% of its bound "
                  f"{bound['bound_ms']:.4f} ms, bound by {bound['bound_by']}; integer floor "
-                 f"{bound['int_floor_ms']:.4f} ms); plain version {ms_plain:.3f} ms")
+                 f"{bound['int_floor_ms']:.4f} ms ({products} modular products per poly); "
+                 f"uint32-layout bound {bound['bound_ms_u32']:.4f} ms, bound by "
+                 f"{bound['bound_by_u32']}); plain version {ms_plain:.3f} ms")
         entry = {"name": name, "route": "cuda", "source": f"mxx_tpu_torch/csrc/{source}",
                  "replaces": replaces, "launches": launches, "max_abs_err": err,
                  "ms": ms, "plain_ms": ms_plain, "bound_ms": bound["bound_ms"],
                  "bound_by": bound["bound_by"], "bytes_ms": bound["bytes_ms"],
-                 "int_floor_ms": bound["int_floor_ms"],
+                 "int_floor_ms": bound["int_floor_ms"], "products_per_poly": products,
+                 "bound_ms_u32": bound["bound_ms_u32"], "bound_by_u32": bound["bound_by_u32"],
                  "pct_of_bound": 100 * bound["bound_ms"] / ms, "library_ms": None,
                  "library": "none: no PyTorch call computes an exact NTT mod q"}
         if source == "four_step_ntt.cu":

@@ -159,7 +159,7 @@ class Wee25Commit:
                              mesh=None, device="cuda") -> Wee25PublicParams:
         """Sample (B, T), T_bottom, and all T_top preimages (wee25.rs:494-760).
         Every T_top preimage shares (B, T): they go to the preimage sampler as
-        one chunked batch of requests (a `mesh` raises there)."""
+        one chunked batch of requests, sharded over `mesh`'s col axis if given."""
         log_q = self._log_q(params)
         if log_q != params.modulus_digits:
             raise ValueError(f"m_g = {self.m_g} must equal d * modulus_digits = "

@@ -19,8 +19,7 @@ stored K chain; the final states encode [sigma, k*e_1] (state 0) and
 
 Every matrix lives on the injector's `device`; artifacts read back land
 there too. The transitions of one source state are ONE batched preimage
-call on that device (the JAX package's mesh sharding of that call is not
-ported: a `mesh` raises).
+call on that device, or, given a mesh, one call sharded over its `col` axis.
 """
 
 from __future__ import annotations
@@ -59,10 +58,6 @@ class DiamondInjector:
                  mesh=None, secret_size: int = DIAMOND_SECRET_SIZE, device="cuda"):
         if base < (1 << batch_bits):
             raise ValueError("base must be at least 2^batch_bits")
-        if mesh is not None:
-            raise NotImplementedError(
-                "DiamondInjector runs on one device; sharding its preimages over a mesh is "
-                "not ported (ROADMAP Queue 1)")
         self.params = params
         self.input_count = input_count
         self.base = base
@@ -71,6 +66,7 @@ class DiamondInjector:
         self.error_sigma = error_sigma
         self.secret_size = secret_size
         self.device = torch.device(device)
+        self.mesh = mesh  # transition preimages shard over the mesh's col axis
         # the same seed for both, as in the JAX package: its streams depend on it
         self._uniform = UniformSampler(seed, self.device)
         self._trap = TrapdoorSampler(params, trapdoor_sigma, seed=seed, device=self.device)
@@ -269,6 +265,7 @@ class DiamondInjector:
                     trapdoors[level - 1][src],
                     b_checkpoints[level - 1][src],
                     [t for _, t in items],
+                    mesh=self.mesh,
                 )
                 for (kid, _), k_mat in zip(items, preimages):
                     self._write_matrix(d, kid, k_mat)

@@ -132,10 +132,6 @@ class DiamondIO:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DiamondIO runs on one device; sharding its preimages over a mesh needs "
-                "parallel/mesh.py, and the port has no parallel/ module yet")
         self.device = torch.device(device)
         self.params = params
         self.input_count = input_count
@@ -157,9 +153,10 @@ class DiamondIO:
             )
             num_slots = payload_slots
         self.num_slots = num_slots
+        self.mesh = mesh
         self.injector = DiamondInjector(
             params, input_count, self.base, batch_bits, trapdoor_sigma, error_sigma,
-            seed, secret_size=secret_size, device=self.device,
+            seed, mesh=mesh, secret_size=secret_size, device=self.device,
         )
         self._seed = seed
         self._trap = TrapdoorSampler(params, trapdoor_sigma, seed=seed, device=self.device)
@@ -340,6 +337,7 @@ class DiamondIO:
                 self.params, self.prf_config, hk,
                 self._trap, self.input_count, self.batch_bits,
                 secret_size=self.secret_size, num_slots=self.payload_slots,
+                mesh=self.mesh,
             )
             self._prf_hash_key = hk
         return self._prf
@@ -532,7 +530,8 @@ class DiamondIO:
                 td0, b0 = pre_out.final_checkpoint(0)
                 bridge = self._trap.preimage(params, td0, b0, bridge_target)
                 self._write(d, "lut_bridge", bridge)
-            pk_eval = LWEBGGPubKeyPltEvaluator(hash_key, self._trap, lut_b, lut_trapdoor, d)
+            pk_eval = LWEBGGPubKeyPltEvaluator(hash_key, self._trap, lut_b, lut_trapdoor, d,
+                                               mesh=self.mesh)
 
         # PRF mask pipeline over pubkey wires (rounds + rebase + refresh)
         if packed:

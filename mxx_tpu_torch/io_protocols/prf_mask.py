@@ -102,11 +102,9 @@ class PrfMaskPipeline:
     def __init__(self, params, config: PrfConfig, hash_key: bytes,
                  trap_sampler, input_count: int, batch_bits: int,
                  secret_size: int = 1, num_slots: int = 1, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PrfMaskPipeline runs on one device; sharding its preimages over a mesh "
-                "needs parallel/mesh.py, and the port has no parallel/ module yet")
         self.params = params
+        # offline rebase/refresh preimage planes shard over the mesh's col axis
+        self.mesh = mesh
         self.device = trap_sampler.device
         self.cfg = config
         self.hash_key = hash_key
@@ -456,7 +454,7 @@ class PrfMaskPipeline:
                             )
                         )
                     rebase_pres = self.trap.preimage_batched_chunked(
-                        params, td0, b0, rebase_targets
+                        params, td0, b0, rebase_targets, mesh=self.mesh
                     )
                     for wire_idx, pre in enumerate(rebase_pres):
                         write_matrix(
@@ -504,7 +502,7 @@ class PrfMaskPipeline:
                     for mid, pre in zip(
                         refresh_ids,
                         self.trap.preimage_batched_chunked(
-                            params, td0, b0, refresh_targets
+                            params, td0, b0, refresh_targets, mesh=self.mesh
                         ),
                     ):
                         write_matrix(mid, pre)
@@ -819,7 +817,7 @@ class PrfMaskPipeline:
                     for mid, pre in zip(
                         rebase_ids,
                         self.trap.preimage_batched_chunked(
-                            params, td0, b0, rebase_targets
+                            params, td0, b0, rebase_targets, mesh=self.mesh
                         ),
                     ):
                         write_matrix(mid, pre)
@@ -865,7 +863,7 @@ class PrfMaskPipeline:
                     for mid, pre in zip(
                         refresh_ids,
                         self.trap.preimage_batched_chunked(
-                            params, td0, b0, refresh_targets
+                            params, td0, b0, refresh_targets, mesh=self.mesh
                         ),
                     ):
                         write_matrix(mid, pre)

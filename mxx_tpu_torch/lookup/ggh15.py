@@ -39,8 +39,8 @@ works on the products queued for the chunk before it.
 Device form: the offline pass draws each LUT's four W blocks in one hash
 batch and the distinct V_k in batches, the online lookup its three hash
 matrices in one. The offline evaluator works on its `device`; the online
-one on the device of c_b0. Sharding over a mesh is not ported: a `mesh`
-raises.
+one on the device of c_b0. Given a mesh, the offline preimage batches
+shard their columns over its `col` axis.
 """
 
 from __future__ import annotations
@@ -170,15 +170,12 @@ class GGH15BGGPubKeyPltEvaluator:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GGH15 offline sampling runs on one device; sharding over a mesh is not "
-                "ported (ROADMAP Queue 1, the parallel/{mesh,crt_collective} item)")
         self.hash_key = hash_key
         self.d = d
         self.trapdoor_sigma = trapdoor_sigma
         self.error_sigma = error_sigma
         self.dir_path = Path(dir_path)
+        self.mesh = mesh  # offline preimage sampling shards over the mesh's col axis
         self.device = torch.device(device)
         self.lut_state: dict[int, PublicLut] = {}
         self.gate_state: dict[int, _GateState] = {}
@@ -320,7 +317,7 @@ class GGH15BGGPubKeyPltEvaluator:
                 with span("ggh15.preimages", stage="lut", requests=len(targets),
                           cols=sum(t.ncol for t in targets)):
                     preimages = trap_sampler.preimage_batched_chunked(
-                        params, b1_trapdoor, b1_matrix, targets
+                        params, b1_trapdoor, b1_matrix, targets, mesh=self.mesh
                     )
                 with span("ggh15.store", stage="lut", matrices=len(preimages)):
                     for (x, _), l_x in zip(pending, preimages):
@@ -354,7 +351,7 @@ class GGH15BGGPubKeyPltEvaluator:
                 with span("ggh15.preimages", stage="gate", requests=len(targets),
                           cols=sum(t.ncol for t in targets)):
                     preimages = trap_sampler.preimage_batched_chunked(
-                        params, b0_trapdoor, b0_matrix, targets
+                        params, b0_trapdoor, b0_matrix, targets, mesh=self.mesh
                     )
                 with span("ggh15.store", stage="gate", matrices=len(preimages)):
                     for prefix, pre in zip(prefixes, preimages):

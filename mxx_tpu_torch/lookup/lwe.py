@@ -185,7 +185,7 @@ class LWEBGGPubKeyPltEvaluator:
         self.pub_matrix = pub_matrix
         self.trapdoor = trapdoor
         self.dir_path = Path(dir_path)
-        self.mesh = mesh  # passed on to the preimage sampler, which raises on a mesh
+        self.mesh = mesh  # offline K_high sampling shards over the mesh's col axis
         self.context: str = ""  # per-circuit namespace (set_plt_context)
         self.gate_state: dict[tuple[str, int, int], _GateState] = {}
         self.last_offloaded_targets = 0

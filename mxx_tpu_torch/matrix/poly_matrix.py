@@ -61,6 +61,33 @@ def host_u32(data: torch.Tensor) -> np.ndarray:
     return data.to(torch.int32).cpu().numpy().view(np.uint32)
 
 
+def switch_terms(residues: torch.Tensor, ints: np.ndarray, fracs: np.ndarray, new_modulus: int,
+                 fr: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scale-and-round terms of some limbs (`residues` int64[l, ...] and
+    their rows of `RingParams.ms_tables`) on the residues' device: with
+    e_t P / q = I_t + f_t, returns (sum_t r_t (I_t mod P) mod P, exact; each
+    product is below 2^63, since r_t < 2^31 and I_t mod P < 2^32) and the
+    float64 accumulator `fr` (moved there) plus r_t f_t, added in limb
+    order."""
+    device = residues.device
+    ints = torch.from_numpy(np.ascontiguousarray(ints)).to(device)
+    P = torch.tensor(new_modulus, dtype=torch.int64, device=device)
+    hi = torch.zeros(residues.shape[1:], dtype=torch.int64, device=device)
+    fr = fr.to(device)
+    for t in range(residues.shape[0]):
+        r = residues[t]
+        hi = (hi + (r * ints[t]) % P) % P
+        fr = fr + r.to(torch.float64) * float(fracs[t])
+    return hi, fr
+
+
+def switch_round(hi: torch.Tensor, fr: torch.Tensor, new_modulus: int) -> torch.Tensor:
+    """(hi + round(fr)) mod P, rounding a fraction of exactly 1/2 up."""
+    fr_floor = torch.floor(fr)
+    carry = fr_floor.to(torch.int64) + (fr - fr_floor >= 0.5).to(torch.int64)
+    return (hi % new_modulus + carry % new_modulus) % new_modulus
+
+
 @dataclass(frozen=True)
 class PolyMatrix:
     data: torch.Tensor  # int64[L, nrow, ncol, n]
@@ -400,18 +427,9 @@ class PolyMatrix:
         coeff = self.to_coeff().data
         if new_modulus < (1 << 32):
             device = coeff.device
-            ints_np, fracs_np = p.ms_tables(new_modulus)
-            ints = torch.from_numpy(ints_np).to(device)
-            P = torch.tensor(new_modulus, dtype=torch.int64, device=device)
-            hi = torch.zeros(coeff.shape[1:], dtype=torch.int64, device=device)
             fr = torch.zeros(coeff.shape[1:], dtype=torch.float64, device=device)
-            for t in range(p.crt_depth):
-                r = coeff[t]
-                hi = (hi + (r * ints[t]) % P) % P
-                fr = fr + r.to(torch.float64) * float(fracs_np[t])
-            fr_floor = torch.floor(fr)
-            carry = (fr_floor.to(torch.int64) + (fr - fr_floor >= 0.5).to(torch.int64)) % P
-            v = (hi + carry) % P
+            hi, fr = switch_terms(coeff, *p.ms_tables(new_modulus), new_modulus, fr)
+            v = switch_round(hi, fr, new_modulus)
             moduli = p.tables(device).moduli.reshape(-1, 1, 1, 1)
             return PolyMatrix(v[None] % moduli, COEFF, p)
         arr = coeff.cpu().numpy()

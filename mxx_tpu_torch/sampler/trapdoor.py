@@ -50,9 +50,9 @@ whose distance from the exact D_{Z,sigma} is quantified per path:
   algorithm) to the reference's own floating-point perturbation chain.
 
 Batched entry points: `preimage_batched_sharded` concatenates many
-requests' columns into one preimage call on one device (the JAX package's
-mesh sharding of that call is not ported: a mesh raises),
-`preimage_batched_chunked` runs it in request chunks and rehydrates
+requests' columns into one preimage call, or, given a mesh, splits those
+columns over its `col` axis, one preimage body per shard on the shard's
+device; `preimage_batched_chunked` runs it in request chunks and rehydrates
 offloaded targets chunk by chunk, and `preimage_extend` solves [B | C] x = U.
 """
 
@@ -67,8 +67,9 @@ import torch
 from .. import config
 from ..matrix import PolyMatrix
 from ..matrix.offload import OffloadedMatrix
+from ..parallel.mesh import COL_AXIS
 from ..ring.params import RingParams
-from ..ring.poly import COEFF
+from ..ring.poly import COEFF, EVAL
 from ..utils.numth import modinv
 from . import chacha, core
 from .dist import FinRingDist, GaussDist
@@ -329,9 +330,10 @@ class TrapdoorSampler:
         # id()-derived from, so an id is never recycled into a stale hit.
         self._cache: dict = {}
 
-    def _operands(self, trapdoor: Trapdoor, public_matrix: PolyMatrix, s: float):
+    def _operands(self, trapdoor: Trapdoor, public_matrix: PolyMatrix, s: float, device=None):
         """EVAL-form (r, e, pub) and the p1 LDL tables on the device, cached
-        per (trapdoor, public_matrix, s)."""
+        per (trapdoor, public_matrix, s); with `device`, their copy there,
+        cached per device too."""
         key = (id(trapdoor), id(public_matrix), s)
         entry = self._cache.get(key)
         if entry is None or entry[0] is not trapdoor or entry[1] is not public_matrix:
@@ -349,7 +351,17 @@ class TrapdoorSampler:
                 torch.from_numpy(upd).to(self.device),
             )
             self._cache[key] = entry
-        return entry[2:]
+        ops = entry[2:]
+        if device is None or ops[0].data.device == torch.device(device):
+            return ops
+        key += (str(device),)
+        copy = self._cache.get(key)
+        if copy is None or copy[0] is not trapdoor or copy[1] is not public_matrix:
+            copy = (trapdoor, public_matrix,
+                    *[PolyMatrix(m.data.to(device), m.fmt, m.params) for m in ops[:3]],
+                    *[t.to(device) for t in ops[3:]])
+            self._cache[key] = copy
+        return copy[2:]
 
     def trapdoor(self, params: RingParams, size: int) -> tuple[Trapdoor, PolyMatrix]:
         d = size
@@ -367,38 +379,70 @@ class TrapdoorSampler:
     def preimage(self, params: RingParams, trapdoor: Trapdoor, public_matrix: PolyMatrix,
                  target: PolyMatrix) -> PolyMatrix:
         """x with public_matrix @ x == target exactly (EVAL form)."""
-        d = public_matrix.nrow
-        if target.nrow != d:
-            raise ValueError("target rows must match public matrix rows")
-        k = params.modulus_digits
-        s = preimage_smoothing_parameter(self.base, self.sigma, d, params.n, k)
-        r_e, e_e, pub, sqrt_var, upd = self._operands(trapdoor, public_matrix, s)
-        self._ctr += 1
-        key = chacha.fold_in(chacha.fold_in(self._key, self._ctr), 0)
-        return _preimage_core(params, key, target.to_eval(), r_e, e_e, pub, sqrt_var, upd,
-                              sigma=self.sigma, c=self.c, s=s)
+        return self._preimage_cols(params, trapdoor, public_matrix, target)
 
     def preimage_batched_sharded(self, params: RingParams, trapdoor: Trapdoor,
                                  public_matrix: PolyMatrix, targets: list[PolyMatrix],
                                  mesh=None) -> list[PolyMatrix]:
         """Many preimage requests as ONE preimage call over their
         concatenated columns (column blocks are independent), split back per
-        request. One device: the JAX package shards this call's columns over
-        a device mesh, which is not ported, so a `mesh` raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "preimage_batched_sharded runs on one device; sharding over a mesh is not "
-                "ported (ROADMAP Queue 1, the parallel/{mesh,crt_collective} item)")
+        request. With a `parallel.Mesh`, the columns split over its `col`
+        axis (see `_preimage_cols`)."""
         if not targets:
             raise ValueError("preimage_batched_sharded requires targets")
         combined = targets[0].to_eval().concat_columns(targets[1:])
-        out = self.preimage(params, trapdoor, public_matrix, combined)
+        # one body either way; an unsharded call goes through `preimage`, the
+        # entry that callers wrap to count and time preimage calls
+        out = (self.preimage(params, trapdoor, public_matrix, combined) if mesh is None
+               else self._preimage_cols(params, trapdoor, public_matrix, combined, mesh))
         outs = []
         start = 0
         for t in targets:
             outs.append(out.slice_columns(start, start + t.ncol))
             start += t.ncol
         return outs
+
+    def _preimage_cols(self, params: RingParams, trapdoor: Trapdoor, public_matrix: PolyMatrix,
+                       target: PolyMatrix, mesh=None) -> PolyMatrix:
+        """The preimage of target's columns under one call counter. With no
+        mesh, one shard on the sampler's device. With a `parallel.Mesh`, the
+        columns are padded to a multiple of its `col` axis size with repeats
+        of the last column; shard j runs the whole preimage body on its own
+        device with the call's key folded with j (the JAX package's
+        `shard_map` over `col`, no collective), and the shards come back to
+        the public matrix's device with the padding dropped."""
+        d = public_matrix.nrow
+        if target.nrow != d:
+            raise ValueError("target rows must match public matrix rows")
+        k = params.modulus_digits
+        s = preimage_smoothing_parameter(self.base, self.sigma, d, params.n, k)
+        shards = 1 if mesh is None else mesh.shape[COL_AXIS]
+        total = target.ncol
+        data = target.to_eval().data
+        pad = (-total) % shards
+        if pad:
+            data = torch.cat([data, data[:, :, total - 1:].expand(-1, -1, pad, -1)], dim=2)
+        width = data.shape[2] // shards
+        self._ctr += 1
+        call_key = chacha.fold_in(self._key, self._ctr)
+        # every shard is enqueued on its device before any is gathered, so
+        # the shards of a multi-card mesh overlap. JAX replicates the body
+        # over the limb axis of a 2-D mesh; here each column shard is
+        # computed once, on the device at limb index 0.
+        outs = []
+        for j in range(shards):
+            dev = None if mesh is None else mesh.device(**{COL_AXIS: j})
+            r_e, e_e, pub, sqrt_var, upd = self._operands(trapdoor, public_matrix, s, dev)
+            dev = r_e.data.device
+            shard = PolyMatrix(data[:, :, j * width:(j + 1) * width].to(dev), EVAL, params)
+            key = chacha.fold_in(call_key.to(dev), j)
+            outs.append(_preimage_core(params, key, shard, r_e, e_e, pub, sqrt_var, upd,
+                                       sigma=self.sigma, c=self.c, s=s))
+        if shards == 1:
+            return outs[0]
+        home = public_matrix.data.device
+        x = torch.cat([o.data.to(home) for o in outs], dim=2)
+        return PolyMatrix(x[:, :, :total], EVAL, params)
 
     def preimage_batched_chunked(self, params: RingParams, trapdoor: Trapdoor,
                                  public_matrix: PolyMatrix, targets: list, mesh=None,

@@ -38,12 +38,15 @@ def _is_cpu(default) -> bool:
 def test_no_device_parameter_defaults_to_the_cpu():
     found = []
     with_device = 0
+    seen = set()
     for qualname, fn in _callables():
         param = inspect.signature(fn).parameters.get("device")
         if param is None or param.default is inspect.Parameter.empty:
             continue
         with_device += 1
+        seen.add(qualname)
         if _is_cpu(param.default):
             found.append(f"{qualname}: device={param.default!r}")
-    assert with_device >= 38, with_device  # the walk reached the package's entry points
+    assert with_device >= 39, with_device  # the walk reached the package's entry points
+    assert "mxx_tpu_torch.parallel.mesh.make_mesh" in seen
     assert not found, "device parameters that default to the CPU:\n" + "\n".join(found)

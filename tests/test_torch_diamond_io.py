@@ -155,11 +155,47 @@ def test_diamond_io_packed_payload_e2e(tmp_path):
     check_e2e(ns, dio, tmp_path, obf)
 
 
-def test_mesh_is_not_ported():
+class _Stop(Exception):
+    pass
+
+
+def test_mesh_is_handed_to_every_preimage_user(tmp_path, monkeypatch):
+    """A DiamondIO built with a mesh hands that mesh object to its injector,
+    its PRF pipeline and the production LUT evaluator (the obfuscation is
+    stopped where that evaluator is built; the injector's transitions have
+    run over the mesh by then)."""
+    from mxx_tpu_torch.parallel import Mesh
+
     ns = BOTH[1]
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        ns.dio.DiamondIO(ns.params.RingParams.new(4, 3, 10, 10), 2, 1, mesh=object(),
-                         device="cpu")
+    mesh = Mesh([["cpu", "cpu"]])
+    handed = []
+
+    def lut_evaluator(*args, mesh=None, **kwargs):
+        handed.append(mesh)
+        raise _Stop
+
+    monkeypatch.setattr(ns.dio, "LWEBGGPubKeyPltEvaluator", lut_evaluator)
+    dio = ns.dio.DiamondIO(ns.params.RingParams.new(4, 3, 10, 10), 1, 1, seed=11,
+                           prf_config=production_config(ns), mesh=mesh, device="cpu")
+    assert dio.injector.mesh is mesh
+    with pytest.raises(_Stop):
+        dio.obfuscate(tmp_path, first_bit_builder)
+    assert handed == [mesh] and handed[0] is mesh
+    assert dio._prf_pipeline().mesh is mesh
+
+
+@pytest.mark.slow
+def test_diamond_io_over_a_mesh_e2e(tmp_path):
+    """`test_diamond_io_prf_pipeline_e2e` with every preimage batch split
+    over a logical 2-shard CPU mesh (the JAX package marks its Diamond iO
+    e2e tests slow)."""
+    from mxx_tpu_torch.parallel import Mesh
+
+    ns = BOTH[1]
+    dio = make_dio(ns, (4, 3, 10, 10), 42, ci_config(ns), mesh=Mesh([["cpu", "cpu"]]))
+    obf = dio.obfuscate(tmp_path, xor_and_builder)
+    assert obf.num_outputs == 2
+    check_e2e(ns, dio, tmp_path, obf)
 
 
 @pytest.mark.slow

@@ -41,7 +41,8 @@ def _np(m):
     return m.data.cpu().numpy().astype(np.uint32) if hasattr(m.data, "cpu") else np.asarray(m.data)
 
 
-def single_input_chain(ns, tmp_path, table=None, d=D, x_in=X_IN, seed=41, tag=b"ggh15_tag"):
+def single_input_chain(ns, tmp_path, table=None, d=D, x_in=X_IN, seed=41, tag=b"ggh15_tag",
+                       **extra):
     """The JAX test's single-lookup circuit, its inputs and its offline
     pass into tmp_path: (circuit, encodings, sampler, pubkey evaluator,
     result pubkey)."""
@@ -59,7 +60,7 @@ def single_input_chain(ns, tmp_path, table=None, d=D, x_in=X_IN, seed=41, tag=b"
     encodings = es.sample(params, pubkeys, [ns.poly.Poly.const(params, x_in, **ns.kw)])
     ns.storage.init_storage_system(tmp_path)
     pk_eval = ns.ggh15.GGH15BGGPubKeyPltEvaluator(KEY, d, SIGMA, 0.0, tmp_path, seed=seed + 2,
-                                                  **ns.kw)
+                                                  **ns.kw, **extra)
     result_pk = circuit.eval(params, pubkeys[0], pubkeys[1:], plt_evaluator=pk_eval)[0]
     pk_eval.sample_aux_matrices(params)
     ns.storage.wait_for_all_writes()
@@ -91,9 +92,6 @@ def test_ggh15_checkpoint_prefix_marker():
     assert "_ins0_key" in mine.checkpoint_prefix(pt.params)
     assert mine.checkpoint_prefix(pt.params) == theirs.checkpoint_prefix(jx.params)
     assert mine._lut_aux_id(pt.params, 0, 5) == theirs._lut_aux_id(jx.params, 0, 5)
-    with pytest.raises(NotImplementedError):
-        pt.ggh15.GGH15BGGPubKeyPltEvaluator(KEY, D, SIGMA, 0.0, "/unused", mesh=object(),
-                                            device="cpu")
 
 
 def test_ggh15_hash_blocks_and_targets_match_jax():
@@ -215,3 +213,29 @@ def test_ggh15_resume_skips_existing(tmp_path):
     enc = online(pt, tmp_path, circuit, encodings, es.secret_vec @ b0,
                  pk_eval2.checkpoint_prefix(params))
     assert enc.plaintext.const_coeff() == (6 * 3) % 5
+
+
+def test_ggh15_offline_over_a_mesh(tmp_path, monkeypatch):
+    """An evaluator built with a logical 2-shard CPU mesh hands it to every
+    offline preimage batch (the L_x stage under B1, the gate stages under
+    B0), and every row of each batch holds B x == target exactly."""
+    from mxx_tpu_torch.parallel import Mesh
+    from mxx_tpu_torch.sampler import TrapdoorSampler
+
+    pt = load("mxx_tpu_torch")
+    mesh = Mesh([["cpu", "cpu"]])
+    batches = []
+    orig = TrapdoorSampler.preimage_batched_chunked
+
+    def recording(self, params, trapdoor, public_matrix, targets, mesh=None, chunk=None):
+        outs = orig(self, params, trapdoor, public_matrix, targets, mesh=mesh, chunk=chunk)
+        batches.append((mesh, public_matrix, list(targets), outs))
+        return outs
+
+    monkeypatch.setattr(TrapdoorSampler, "preimage_batched_chunked", recording)
+    single_input_chain(pt, tmp_path, mesh=mesh)
+    assert len(batches) == 2  # the 16 L_x under B1, the 5 gate stages under B0
+    assert [len(t) for _, _, t, _ in batches] == [T_N, 5]
+    for used, b, targets, outs in batches:
+        assert used is mesh
+        assert all(b @ x == t for x, t in zip(outs, targets))

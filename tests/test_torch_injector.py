@@ -136,11 +136,8 @@ def _transition_target(inj, d, level, digit, state_idx):
     return sel @ inj.read_matrix(d, inj.b_matrix_id(level, state_idx))
 
 
-@pytest.mark.parametrize("args,shape", [(ARGS, SHAPE), ((4, 2, 17, 1), (2, 4, 2))])
-def test_injector_transitions_exact(args, shape, tmp_path):
-    p, _ = _params(args)
-    inj = DiamondInjector(p, *shape, SIGMA, 0.0, seed=41, device="cpu")
-    inj.preprocess(tmp_path, Poly.const(p, 2, device="cpu"))
+def _check_transitions(inj, tmp_path):
+    """B_{l-1,src} K == S B_{l,state} for every stored transition K."""
     checked = 0
     for level in range(1, inj.input_count + 1):
         for digit in range(inj.base):
@@ -154,6 +151,35 @@ def test_injector_transitions_exact(args, shape, tmp_path):
                 checked += 1
     assert checked == sum(inj.base * inj.state_count_at_level(lv)
                           for lv in range(1, inj.input_count + 1))
+
+
+@pytest.mark.parametrize("args,shape", [(ARGS, SHAPE), ((4, 2, 17, 1), (2, 4, 2))])
+def test_injector_transitions_exact(args, shape, tmp_path):
+    p, _ = _params(args)
+    inj = DiamondInjector(p, *shape, SIGMA, 0.0, seed=41, device="cpu")
+    inj.preprocess(tmp_path, Poly.const(p, 2, device="cpu"))
+    _check_transitions(inj, tmp_path)
+
+
+def test_injector_transitions_over_a_mesh(tmp_path, monkeypatch):
+    """With a logical 2-shard CPU mesh every transition group goes to the
+    sampler with that mesh, and every K holds its relation exactly."""
+    from mxx_tpu_torch.parallel import Mesh
+
+    meshes = []
+    orig = TrapdoorSampler._preimage_cols
+
+    def recording(self, params, trapdoor, public_matrix, target, mesh=None):
+        meshes.append(mesh)
+        return orig(self, params, trapdoor, public_matrix, target, mesh)
+
+    monkeypatch.setattr(TrapdoorSampler, "_preimage_cols", recording)
+    p, _ = _params()
+    mesh = Mesh([["cpu", "cpu"]])
+    inj = DiamondInjector(p, *SHAPE, SIGMA, 0.0, seed=41, mesh=mesh, device="cpu")
+    inj.preprocess(tmp_path, Poly.const(p, 2, device="cpu"))
+    assert meshes and all(m is mesh for m in meshes)
+    _check_transitions(inj, tmp_path)
 
 
 def test_injector_exact_relations(tmp_path):

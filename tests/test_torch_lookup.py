@@ -43,6 +43,7 @@ from mxx_tpu_torch.lookup import (
 from mxx_tpu_torch.lookup import lwe
 from mxx_tpu_torch.matrix import PolyMatrix
 from mxx_tpu_torch.matrix.offload import OffloadedMatrix, offload_matrix
+from mxx_tpu_torch.parallel import Mesh
 from mxx_tpu_torch.ring.params import RingParams
 from mxx_tpu_torch.ring.poly import Poly
 from mxx_tpu_torch.sampler import FinRingDist, TernaryDist, TrapdoorSampler, UniformSampler
@@ -496,15 +497,19 @@ def test_preimage_batched_chunked_exact_and_unpadded(tmp_path, monkeypatch):
         assert b @ x == t
 
 
-def test_preimage_batched_sharded_is_one_call_and_rejects_a_mesh():
+def test_preimage_batched_sharded_is_one_call_and_takes_a_mesh():
+    """One call without a mesh; over a logical 1x4 mesh (6 columns padded to
+    8) the batched and the chunked call give each request its own columns,
+    B x == t exactly."""
     p, ts, td, b, targets = _trapdoor_and_targets(3, 2, seed=8)
     xs = ts.preimage_batched_sharded(p, td, b, targets)
     assert [x.ncol for x in xs] == [2, 2, 2]
     assert all(b @ x == t for x, t in zip(xs, targets))
-    with pytest.raises(NotImplementedError):
-        ts.preimage_batched_sharded(p, td, b, targets, mesh=object())
-    with pytest.raises(NotImplementedError):
-        ts.preimage_batched_chunked(p, td, b, targets, mesh=object())
+    mesh = Mesh([["cpu"] * 4])
+    for xs in (ts.preimage_batched_sharded(p, td, b, targets, mesh=mesh),
+               ts.preimage_batched_chunked(p, td, b, targets, mesh=mesh, chunk=2)):
+        assert [x.ncol for x in xs] == [2, 2, 2]
+        assert all(b @ x == t for x, t in zip(xs, targets))
 
 
 def test_preimage_extend_exact():

@@ -34,7 +34,7 @@ _MODULES = {
     "poly_vec": "circuit.poly_vec", "vec_eval": "lookup.vec_eval",
     "slot_transfer": "slot_transfer", "mod_switch": "gadgets.mod_switch",
     "ntt_circuit": "gadgets.ntt_circuit", "ckks": "gadgets.fhe.ckks",
-    "carry": "gadgets.arith.carry_montgomery",
+    "carry": "gadgets.arith.carry_montgomery", "parallel": "parallel",
 }
 
 

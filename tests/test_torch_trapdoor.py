@@ -189,6 +189,7 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(mxx_tpu_torch.__path__, 'mxx_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert not any(k == 'mxx_tpu' or k.startswith('mxx_tpu.') for k in sys.modules)\n"
+        "assert 'mxx_tpu_torch.parallel.crt_collective' in sys.modules\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,

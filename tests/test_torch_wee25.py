@@ -81,11 +81,38 @@ def test_checkpoint_prefix_matches_jax(key):
 
 def test_public_params_draws_and_relations(jax_pp):
     _, jpp, pt, _ = jax_pp
-    p, scheme = pt.params, pt.scheme
-    pp = scheme.sample_public_params(p, KEY, seed=61, device="cpu")
+    pp = pt.scheme.sample_public_params(pt.params, KEY, seed=61, device="cpu")
     np.testing.assert_array_equal(_np(pp.b), _np(jpp.b))
     np.testing.assert_array_equal(_np(pp.t_bottom), _np(jpp.t_bottom))
-    # each T_top_b against its target, built as the JAX package builds it
+    _check_t_top(pt, pp)
+
+
+def test_public_params_over_a_mesh(jax_pp, monkeypatch):
+    """T_top's preimage batch split over a logical 2-shard CPU mesh: B and
+    T_bottom still equal the JAX package's, each T_top_b holds its relation."""
+    from mxx_tpu_torch.parallel import Mesh
+    from mxx_tpu_torch.sampler import TrapdoorSampler
+
+    _, jpp, pt, _ = jax_pp
+    meshes = []
+    orig = TrapdoorSampler._preimage_cols
+
+    def recording(self, params, trapdoor, public_matrix, target, mesh=None):
+        meshes.append(mesh)
+        return orig(self, params, trapdoor, public_matrix, target, mesh)
+
+    monkeypatch.setattr(TrapdoorSampler, "_preimage_cols", recording)
+    mesh = Mesh([["cpu", "cpu"]])
+    pp = pt.scheme.sample_public_params(pt.params, KEY, seed=61, mesh=mesh, device="cpu")
+    assert meshes and all(m is mesh for m in meshes)
+    np.testing.assert_array_equal(_np(pp.b), _np(jpp.b))
+    np.testing.assert_array_equal(_np(pp.t_bottom), _np(jpp.t_bottom))
+    _check_t_top(pt, pp)
+
+
+def _check_t_top(pt, pp):
+    """Each T_top_b against its target, built as the JAX package builds it."""
+    p, scheme = pt.params, pt.scheme
     log_q = scheme.m_g // scheme.d
     gadget = pt.matrix.PolyMatrix.gadget_matrix(p, scheme.d, device="cpu")
     g_vals = [gadget.entry(0, t).const_coeff() for t in range(p.modulus_digits)]
