@@ -17,8 +17,10 @@ no package beside it, a kernel that does not build, launch or agree):
    B: n=2^14, L=10, crt_bits 24, base_bits 12, B=64 (n1 = 128) and
    C: the same ring at B=1000, the preimage's largest transform;
 3. the radix-2 kernel's path (K3): `ntt_fwd_head` and `ntt_fwd_hybrid` at
-   shapes A and B, with their launch counters reset before and read after,
-   then checked against their plain versions, the radix chain and K1;
+   shapes A and B, at n=2^15 (L=10, B=8; a cluster of 2 blocks), n=2^16
+   (L=10, B=4; a cluster of 4) and n=256 (L=3, B=64), with their launch
+   counters reset before and read after, then checked against their plain
+   versions, the radix chain and (2048 <= n <= 16384) K1;
 4. the main path: an MP12 trapdoor preimage at the bench shape
    (n=2^14, L=10, crt_bits 24, base_bits 12, d=1, sigma 4.578, seed 2,
    uniform 1x50 target), checked A x == U exactly, with the kernels' launch
@@ -197,9 +199,10 @@ no package beside it, a kernel that does not build, launch or agree):
    composed simulated bound (replay mode) <= observed + 80, printed side by
    side; the decode margins are printed against (q // 4) >> 4, not held (the
    error is q-scale in both packages); times by span and peak device
-   memory. Phases 23 and 24 launch neither K1 nor K2 (n < 2048 takes
-   the radix chain): they print their counts (0 / 0) and do not require
-   launches;
+   memory. Phases 23 and 24 launch neither K1 nor K2 (n < 2048): phase
+   24's forward transforms go through K3 (ring/ntt.py routes 256 <= n < 2048
+   there), which it requires; phase 23's ring (n=4) takes the radix chain
+   both ways;
 25. `mesh`: `parallel/` on the card. It prints the device count and the
    shards of `make_mesh()` (one per card: 1x1 on a one-card machine) and of
    two logical meshes whose shards all sit on the card (1x4 and 2x4); then
@@ -228,14 +231,23 @@ no package beside it, a kernel that does not build, launch or agree):
 26. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
-   B=64, each kernel against its plain version at the largest transform of
-   the preimage ([10, 1000, 16384]), the two batched BGG passes, and a
-   profiled batched encoding pass, its device time split by stage;
-27. one JSON line of kernels (K1/K2 `launches` from the LWE LUT chain, each
-   path's count beside it in `launches_by_path`; each kernel's least time
-   `bound_ms`, the larger of its device-memory time and its integer floor,
-   and its share `pct_of_bound`; beside it `bound_ms_u32`, the same bound
-   for the TPU kernel's uint32 layout, 8 bytes per residue; `library_ms`
+   B=64, the two batched BGG passes, and a profiled batched encoding pass,
+   its device time split by stage; then `ntt_fwd_auto` at the production ring
+   [10, 250, 65536] (routed to K3, counted, equal to the chain) beside the
+   radix chain, and `ntt_inv_auto` (the radix chain) at [10, 500, 32768] and
+   [10, 250, 65536]; each kernel against its plain version and the radix chain
+   (and K1 at 2^14): K1, K2 and K3's head and whole transform at the largest
+   transform of the preimage ([10, 1000, 16384]), K3's whole transform at
+   [10, 500, 32768], [10, 250, 65536] and [3, 4096, 256]; and K1 against K3
+   in turns (K1, K3, K3, K1) at [10, 1000, 16384] and [8, 512, 8192], with
+   the routing of 2048 <= n <= 16384 they support beside ring/ntt.py's;
+27. one JSON line of kernels (`launches` from one path: the LWE LUT chain
+   for K1/K2, the diamond io noise phase for K3's whole transform, K3's own
+   path for its head; each path's count beside it in `launches_by_path`;
+   each row's least time `bound_ms`, the larger of its device-memory time
+   and its integer floor, and its share `pct_of_bound`; beside it
+   `bound_ms_u32`, the same bound for the TPU kernel's uint32 layout, 8
+   bytes per residue; `chain_ms`, the radix chain's time; `library_ms`
    null, since no PyTorch call computes an exact NTT mod q), then the
    result line.
 """
@@ -403,10 +415,11 @@ def drive_radix(dev, shapes) -> tuple[dict, int]:
         errs = {
             "head==head_plain": max_err(head, hybrid_ntt.ntt_fwd_head_plain(x, p)),
             "hybrid==chain": max_err(full, ntt.ntt_fwd(x, t.psi_rev, t.moduli)),
-            "hybrid==K1": max_err(full, four_step.four_step_ntt_fwd(x, p, p.n // 128)),
             "hybrid==hybrid_plain[:8]": max_err(full[:, :8],
                                                 hybrid_ntt.ntt_fwd_hybrid_plain(x[:, :8], p)),
         }
+        if 2048 <= p.n <= 16384:
+            errs["hybrid==K1"] = max_err(full, four_step.four_step_ntt_fwd(x, p, p.n // 128))
         torch.cuda.synchronize()
         print(f"check K3 {label} n={p.n} L={p.crt_depth} B={x.shape[1]}: "
               + ", ".join(f"{k} max|d| {v}" for k, v in errs.items())
@@ -452,18 +465,17 @@ def drive_bgg(p, dev) -> dict:
 
     from mxx_tpu_torch.circuit.batched_eval import eval_batched
     from mxx_tpu_torch.matrix import PolyMatrix
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
 
     c, pks, encs, plain, es = bgg_circuit(p, dev)
     torch.cuda.synchronize()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     seq_pk = c.eval(p, pks[0], pks[1:])
     bat_pk = eval_batched(c, p, pks[0], pks[1:])
     seq_enc = c.eval(p, encs[0], encs[1:])
     bat_enc = eval_batched(c, p, encs[0], encs[1:])
     torch.cuda.synchronize()
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     x_out = c.eval(p, Poly.one(p, dev), plain)  # the plaintext oracle
     s_g = es.secret_vec @ PolyMatrix.gadget_matrix(p, 1, dev)
     ok_pk = all(a == b for a, b in zip(seq_pk, bat_pk))
@@ -623,7 +635,6 @@ def drive_lwe_lut(p, dev, timing, mesh=None, label="lwe lut chain") -> tuple[dic
     from mxx_tpu_torch.lookup.lwe import k_high_checkpoint_prefix
     from mxx_tpu_torch.matrix import PolyMatrix
     from mxx_tpu_torch.native import writer
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
     from mxx_tpu_torch.storage import (
@@ -661,7 +672,7 @@ def drive_lwe_lut(p, dev, timing, mesh=None, label="lwe lut chain") -> tuple[dic
         init_storage_system(tmp)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        four_step.launches.update(fwd=0, inv=0)
+        reset_launches()
         ms = {}
 
         def clock(name, fn):
@@ -697,7 +708,7 @@ def drive_lwe_lut(p, dev, timing, mesh=None, label="lwe lut chain") -> tuple[dic
             return min(coeff, q - coeff), rounded % P_MOD == mask
 
         err, mask_ok = clock("decode", decode)
-        counts = dict(four_step.launches)
+        counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
 
         ok_oracle = pt.const_coeff() == expected and enc.plaintext.const_coeff() == expected
@@ -1001,16 +1012,14 @@ def drive_diamond_we(p, dev, timing) -> dict:
     measurements ("runs")."""
     import torch
 
-    from mxx_tpu_torch.ops import four_step
-
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timing("diamond we: device memory allocated at the start",
            torch.cuda.memory_allocated() / 1e9, "GB")
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     ok, runs = zip(*(we_encryption(p, dev, msg, not msg, timing) for msg in (False, True)))
     torch.cuda.synchronize()
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     timing("diamond we: peak device memory", torch.cuda.max_memory_allocated() / 1e9, "GB")
     print(f"diamond we: launches in the phase: fwd {counts['fwd']}, inv {counts['inv']}",
           flush=True)
@@ -1030,7 +1039,6 @@ def drive_aky24_fe(p, dev, timing) -> dict:
 
     from mxx_tpu_torch.circuit import PolyCircuit
     from mxx_tpu_torch.func_enc import Aky24FuncEnc
-    from mxx_tpu_torch.ops import four_step
 
     def f(x):
         return x[0] ^ x[1] ^ (x[2] & x[3]) ^ (x[4] | x[5]) ^ (x[6] & x[7])
@@ -1056,7 +1064,7 @@ def drive_aky24_fe(p, dev, timing) -> dict:
         ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
         return out
 
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     _, msk = clock("setup", lambda: fe.setup(p))
     fsk = clock("keygen", lambda: fe.keygen(p, msk, c))
     got = []
@@ -1064,7 +1072,7 @@ def drive_aky24_fe(p, dev, timing) -> dict:
         ct = clock("enc", lambda m=m: fe.enc(p, msk, m))
         got.append(clock("dec", lambda ct=ct: fe.dec(p, ct, fsk, c)))
     torch.cuda.synchronize()
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     pks = fe._pubkeys(p)
     target = c.eval(p, pks[0], pks[1:])[0].matrix @ fe._decode_selector(p)
     ok_rel = msk.b_matrix @ fsk.k_f == target
@@ -1097,6 +1105,23 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def reset_launches() -> None:
+    """Zero the launch counters of K1/K2 (four_step) and K3 (hybrid_ntt)."""
+    from mxx_tpu_torch.ops import four_step, hybrid_ntt
+
+    four_step.launches.update(fwd=0, inv=0)
+    hybrid_ntt.launches.update(head=0, hybrid=0)
+
+
+def launch_counts() -> dict:
+    """Launches since reset_launches: K1 "fwd", K2 "inv", K3 "head" and
+    "hybrid" (ring/ntt.py routes forward transforms of 256 <= n < 2048 and
+    16384 < n <= 65536 on the card to K3's "hybrid")."""
+    from mxx_tpu_torch.ops import four_step, hybrid_ntt
+
+    return {**four_step.launches, **hybrid_ntt.launches}
+
+
 def require_launches(phase: str, counts: dict) -> None:
     if counts["fwd"] == 0 or counts["inv"] == 0:
         raise SystemExit(f"chip_smoke: the {phase} phase did not go through both four-step "
@@ -1123,7 +1148,6 @@ def lifted_passes(p, dev, circuit, values, tag: bytes, seed: int) -> dict:
         PolyPltEvaluator,
     )
     from mxx_tpu_torch.matrix import PolyMatrix
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.sampler import TernaryDist, UniformSampler
 
@@ -1135,7 +1159,7 @@ def lifted_passes(p, dev, circuit, values, tag: bytes, seed: int) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     pk_in, ms_lift_pk = timed(lambda: lift_constants_batched(p, one_pk[0], values))
     enc_in, ms_lift_enc = timed(lambda: lift_constants_batched(p, one_enc, values))
     sample = [0, len(values) // 2 - 1, len(values) - 1]
@@ -1148,7 +1172,7 @@ def lifted_passes(p, dev, circuit, values, tag: bytes, seed: int) -> dict:
     enc_out, ms_enc = timed(lambda: eval_batched(
         circuit, p, one_enc, enc_in, DebugBGGEncodingPltEvaluator(BGG_KEY, s),
         wire_store_out=stores))
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     del enc_in
 
@@ -1305,14 +1329,13 @@ def drive_noise_refresh(p, dev, state, timing) -> dict:
         DiamondNoiseRefresher,
         NoiseRefresherNaiveVec,
     )
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
 
     ts, td0, b0, sigma, state0 = state
     q = p.modulus
     g = PolyMatrix.gadget_matrix(p, 1, dev)
     torch.cuda.synchronize()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
 
     # (i) one wire
     nr = DiamondNoiseRefresher(p, ts, b0, td0, BGG_KEY, 1, 8, base_bits=4)
@@ -1330,7 +1353,7 @@ def drive_noise_refresh(p, dev, state, timing) -> dict:
     ok_dirty = not (dirty.vector == a_c.mul_poly_scalar(sigma) - x_g)
     ok_card = refreshed.vector.data.is_cuda and all(
         m.data.is_cuda for m in (material["p_mask"], material["p_decoder"], material["a_m"]))
-    mid = dict(four_step.launches)
+    mid = launch_counts()
     print(f"noise refresh (i) n={p.n} L={p.crt_depth}, DiamondNoiseRefresher v_bits 8, base_bits "
           f"4, Delta 2^{nr.delta.bit_length() - 1}, {nr.num_digits} digits: {pre_calls} "
           f"preimages of {pre_cols} target columns, B0 P == target {ok_pre}; refreshed == "
@@ -1370,7 +1393,7 @@ def drive_noise_refresh(p, dev, state, timing) -> dict:
         per_level * p.crt_depth, ((per_level - 1) * p.modulus_digits + 1) * p.crt_depth,
         p.crt_depth)
     torch.cuda.synchronize()
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     print(f"noise refresh (ii) NoiseRefresherNaiveVec v_bits 6, base_bits 4 over "
           f"{p.crt_depth} levels: twisted residues recompose {ok_twist}, {pre_calls} preimages "
           f"of {pre_cols} target columns {ok_counts}, B0 P == target {ok_pre_v}; recomposed == "
@@ -1402,7 +1425,6 @@ def drive_masked_decode(p, dev, state, timing) -> dict:
     from mxx_tpu_torch.decoder import DirectoryDecoderArtifacts, MaskedHighBitDecoder
     from mxx_tpu_torch.decoder import masked_high_bit
     from mxx_tpu_torch.matrix import PolyMatrix
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.sampler import FinRingDist, HashSampler
 
@@ -1414,7 +1436,7 @@ def drive_masked_decode(p, dev, state, timing) -> dict:
     g = PolyMatrix.gadget_matrix(p, 1, dev)
     hs = HashSampler(dev)
     torch.cuda.synchronize()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     pks, outputs = [], []
     for i, (bit, mask) in enumerate(zip(bits, masks)):
         a = hs.sample_hash(p, BGG_KEY, f"dec_pk_{i}", 1, p.modulus_digits, FinRingDist())
@@ -1460,7 +1482,7 @@ def drive_masked_decode(p, dev, state, timing) -> dict:
     got = [d[0] for d in decoded]
     ok_rest = all(not any(d[1:]) and len(d) == p.n for d in decoded)
     torch.cuda.synchronize()
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     print(f"masked decode n={p.n} L={p.crt_depth}, secret_size 1, {len(bits)} outputs: "
           f"{pre_calls} preimages, B0 P == target {ok_pre}, stored artifacts ({n_bytes} bytes) "
           f"read back on the card with B0 P == target {ok_stored}; bits {got} == {bits} "
@@ -1555,7 +1577,6 @@ def drive_slot_transfer(p, dev, timing) -> dict:
     from mxx_tpu_torch.bgg.poly_encoding import BGGPolyEncodingSampler
     from mxx_tpu_torch.circuit import PolyCircuit
     from mxx_tpu_torch.matrix import PolyMatrix
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
     from mxx_tpu_torch.slot_transfer.preimage import (
@@ -1587,7 +1608,7 @@ def drive_slot_transfer(p, dev, timing) -> dict:
     tmp = Path(tempfile.mkdtemp(prefix="mxx_slot_transfer_"))
     try:
         torch.cuda.synchronize()
-        four_step.launches.update(fwd=0, inv=0)
+        reset_launches()
         init_storage_system(tmp)
         st_pk = BggPublicKeySTEvaluator(ST_KEY, S, 4.578, 0.0, tmp, seed=92, device=dev)
         TrapdoorSampler.preimage = counted
@@ -1608,7 +1629,7 @@ def drive_slot_transfer(p, dev, timing) -> dict:
                                             t_row @ b0)
             return circuit.eval(p, encs[0], encs[1:], slot_transfer_evaluator=ev)
         got, ms_on = timed(online)
-        counts = dict(four_step.launches)
+        counts = launch_counts()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     g = PolyMatrix.gadget_matrix(p, 1, dev)
@@ -1691,7 +1712,6 @@ def drive_ggh15_chain(p, dev, timing) -> dict:
     from mxx_tpu_torch.lookup import PolyPltEvaluator, ggh15
     from mxx_tpu_torch.matrix import PolyMatrix
     from mxx_tpu_torch.native import writer
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.sampler import TernaryDist, TrapdoorSampler, UniformSampler
     from mxx_tpu_torch.storage import init_storage_system, wait_for_all_writes
@@ -1748,7 +1768,7 @@ def drive_ggh15_chain(p, dev, timing) -> dict:
         init_storage_system(tmp)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        four_step.launches.update(fwd=0, inv=0)
+        reset_launches()
         pt, ms_oracle = timed(lambda: circuit.eval(p, Poly.one(p, dev), plaintexts,
                                                    plt_evaluator=PolyPltEvaluator())[0])
         pk_eval = ggh15.GGH15BGGPubKeyPltEvaluator(GGH15_KEY, 1, TRAPDOOR_SIGMA, ERROR_SIGMA,
@@ -1777,7 +1797,7 @@ def drive_ggh15_chain(p, dev, timing) -> dict:
         slot_out, ms_packed = timed(lambda: circuit.eval(
             p, slot_encs[0], slot_encs[1:], plt_evaluator=ggh15.GGH15BGGPolyEncodingPltEvaluator(
                 GGH15_KEY, tmp, cp, p, packed.secret_mat @ b0))[0])
-        counts = dict(four_step.launches)
+        counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
 
         # every stored preimage read back and held to its captured target
@@ -1891,7 +1911,6 @@ def drive_commit_lut(p, dev, timing) -> dict:
         derive_a_out_matrix,
     )
     from mxx_tpu_torch.matrix import PolyMatrix
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.params import RingParams
     from mxx_tpu_torch.ring.poly import Poly
     from mxx_tpu_torch.rlwe_enc import rlwe_encrypt
@@ -1919,7 +1938,7 @@ def drive_commit_lut(p, dev, timing) -> dict:
     scheme = Wee25Commit(1, 2, k + 2, k, TRAPDOOR_SIGMA)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     ms = {}
     pp, ms["public params"] = timed(lambda: scheme.sample_public_params(
         pc, COMMIT_KEY, seed=160, device=dev))
@@ -1976,7 +1995,7 @@ def drive_commit_lut(p, dev, timing) -> dict:
         nbytes = dir_bytes(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     del pp, cache, openings, on
 
@@ -2119,7 +2138,6 @@ def drive_diamond_io(p, dev, timing, slots: int = DIO_SLOTS) -> dict:
         DebugBGGPubKeyPltEvaluator,
     )
     from mxx_tpu_torch.matrix import PolyMatrix
-    from mxx_tpu_torch.ops import four_step
 
     dio = DiamondIO(
         p, input_count=2, batch_bits=1, seed=91, prf_config=dio_prf_config(),
@@ -2141,7 +2159,7 @@ def drive_diamond_io(p, dev, timing, slots: int = DIO_SLOTS) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        four_step.launches.update(fwd=0, inv=0)
+        reset_launches()
         with SpanLog() as obf_log:
             obf, ms_obf = timed(lambda: dio.obfuscate(tmp, xor_and_builder))
         nbytes = dir_bytes(tmp)
@@ -2153,7 +2171,7 @@ def drive_diamond_io(p, dev, timing, slots: int = DIO_SLOTS) -> dict:
                 out, ms = timed(lambda b=bits: dio.eval(tmp, obf, xor_and_builder, b))
             results.append((bits, out, ms, list(dio.last_decode_margins), log,
                             torch.cuda.max_memory_allocated()))
-        counts = dict(four_step.launches)
+        counts = launch_counts()
         digits = [1, 1]
         states = dio.injector.online_eval(tmp, obf.preprocess_out, digits)
         sigma = dio.injector.debug_final_secret_matrix(tmp, digits)
@@ -2279,7 +2297,6 @@ def drive_estimators(p, pd, dev, timing, we, fe, decode, dio) -> dict:
         estimate_diamond_io,
         measure_preimage_cost,
     )
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.we.bench_estimator import estimate_diamond_we
 
     bad_costs, counts_equal = [], []
@@ -2306,7 +2323,7 @@ def drive_estimators(p, pd, dev, timing, we, fe, decode, dio) -> dict:
               f"{estimated == made}", flush=True)
 
     torch.cuda.synchronize()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     k = p.modulus_digits
     tag = f"n={p.n} L={p.crt_depth}"
     model(f"{tag} poly", measure_poly_costs(p, device=dev))
@@ -2358,7 +2375,7 @@ def drive_estimators(p, pd, dev, timing, we, fe, decode, dio) -> dict:
           f"{dio['artifact_bytes']}; estimate / written "
           f"{est.artifact_bytes / dio['artifact_bytes']:.4f}", flush=True)
     torch.cuda.synchronize()
-    launches = dict(four_step.launches)
+    launches = launch_counts()
 
     found = aky24_io_find_crt_depth(aky24_lut_circuit, p.n, p.crt_bits, p.base_bits, 8,
                                     AKY24_IO_KW)
@@ -2423,7 +2440,6 @@ def drive_core_ops(p, dev, timing) -> dict:
     from mxx_tpu_torch.matrix import PolyMatrix
     from mxx_tpu_torch.matrix.poly_matrix import host_u32
     from mxx_tpu_torch.native import codec
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import COEFF, Poly
     from mxx_tpu_torch.sampler import FinRingDist, HashSampler, UniformSampler
 
@@ -2433,7 +2449,7 @@ def drive_core_ops(p, dev, timing) -> dict:
     a = us.sample_uniform(p, 2, 2 * k, uni).to_eval()
     b = us.sample_uniform(p, 2, 512, uni).to_eval()
     torch.cuda.synchronize()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
 
     # mul_decompose, whole and in column chunks of 64
     whole, ms_whole, peak_whole = chunked_mul_decompose(a, b, 0)
@@ -2506,7 +2522,7 @@ def drive_core_ops(p, dev, timing) -> dict:
         ok_files = (Poly.read_from_file(p, tmp, "pe", dev) == pe
                     and PolyMatrix.read_from_file(p, tmp, "m", dev) == m)
     torch.cuda.synchronize()
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     del back, m, host, pe, digits, half
 
     checks = dict(chunks=ok_chunks, gadget=ok_gadget, small=ok_small, tensor=ok_tensor,
@@ -2575,7 +2591,6 @@ def drive_ckks(p, dev, timing, nested: dict) -> dict:
         sample_relinearization_eval_keys,
     )
     from mxx_tpu_torch.lookup import PolyPltEvaluator
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.poly import Poly
 
     def build():
@@ -2617,7 +2632,7 @@ def drive_ckks(p, dev, timing, nested: dict) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     inputs = [Poly.const(p, v, dev) for v in values]
     outs, ms_eval = timed(lambda: eval_batched(loaded, p, Poly.one(p, dev), inputs,
                                                PolyPltEvaluator()))
@@ -2625,7 +2640,7 @@ def drive_ckks(p, dev, timing, nested: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     ok_card = all(o.data.is_cuda for o in outs)
     out_vals, ms_decode = timed(lambda: [o.const_coeff() for o in outs])
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     del outs
 
     k = ctx.nested.k
@@ -2785,7 +2800,6 @@ def drive_ntt_circuit(p, dev, timing) -> dict:
     from mxx_tpu_torch.circuit.poly_vec import PolyVec
     from mxx_tpu_torch.gadgets.ntt_circuit import forward_ntt, inverse_ntt, register_mod_p_lut
     from mxx_tpu_torch.lookup.vec_eval import PolyVecPltEvaluator
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.slot_transfer import PolyVecSlotTransferEvaluator
 
     circuit = PolyCircuit()
@@ -2798,13 +2812,13 @@ def drive_ntt_circuit(p, dev, timing) -> dict:
     rng = random.Random(12)
     vals = [rng.randrange(NTT_P) for _ in range(NTT_SLOTS)]
     torch.cuda.synchronize()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     outs, ms = timed(lambda: eval_batched(
         circuit, p, PolyVec.const(p, [1] * NTT_SLOTS, dev), [PolyVec.const(p, vals, dev)],
         PolyVecPltEvaluator(), PolyVecSlotTransferEvaluator()))
     ok_card = all(x.data.is_cuda for o in outs for x in o.slots)
     got = [[x.const_coeff() for x in o.slots] for o in outs]
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     want = host_ntt(vals, NTT_P)
     ok_fwd, ok_back = got[0] == want, got[1] == vals
     ok_host = host_ntt(want, NTT_P, inverse=True) == vals
@@ -2822,8 +2836,10 @@ def drive_ntt_circuit(p, dev, timing) -> dict:
 
 DIO_LWE_RING = (4, 3, 10, 10)  # tests/test_production_lwe_diamond.py
 DIO_NOISE_RING = (256, 3, 24, 5)  # tests/test_noise_regime.py, the packed n=256 run
-NO_KERNEL_NOTE = ("K1/K2 not launched: ring/ntt.py sends n < 2048 to the radix chain, so "
-                  "this phase runs no four-step kernel")
+NO_KERNEL_NOTE = ("no kernel launched: ring/ntt.py sends n < 256 to the radix chain, both "
+                  "ways")
+K3_ONLY_NOTE = ("K1/K2 not launched: ring/ntt.py sends the forward transforms of "
+                "256 <= n < 2048 to K3 and the inverse ones to the radix chain")
 
 
 def production_prf_config():
@@ -2870,7 +2886,6 @@ def drive_diamond_io_lwe(dev, timing) -> dict:
     from mxx_tpu_torch.io_protocols import DiamondIO
     from mxx_tpu_torch.lookup import lwe
     from mxx_tpu_torch.matrix import PolyMatrix
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.params import RingParams
     from mxx_tpu_torch.storage import read_matrices_from_multi_batch
 
@@ -2899,7 +2914,7 @@ def drive_diamond_io_lwe(dev, timing) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        four_step.launches.update(fwd=0, inv=0)
+        reset_launches()
         with SpanLog() as obf_log, HostRssPeak() as rss:
             obf, ms_obf = timed(lambda: dio.obfuscate(tmp, first_bit_builder))
         cls.sample_aux_matrices = sample_aux
@@ -2915,7 +2930,7 @@ def drive_diamond_io_lwe(dev, timing) -> dict:
                 out, ms = timed(lambda b=bits: dio.eval(tmp, obf, first_bit_builder, b))
             results.append((bits, out, ms, list(dio.last_decode_margins), log,
                             torch.cuda.max_memory_allocated()))
-        counts = dict(four_step.launches)
+        counts = launch_counts()
 
         digits = [1]
         states = dio.injector.online_eval(tmp, obf.preprocess_out, digits)
@@ -2972,7 +2987,8 @@ def drive_diamond_io_lwe(dev, timing) -> dict:
           f"{ok_bridge}, B K_high == target for every stored row of the first gate of each "
           f"context {ok_rows} ({checked}) (tolerance 0: exact); {len(recorded)} LUT gates "
           f"recorded ({contexts}), {rows_total} K_high rows; launches in the phase: fwd "
-          f"{counts['fwd']}, inv {counts['inv']} ({NO_KERNEL_NOTE})", flush=True)
+          f"{counts['fwd']}, inv {counts['inv']}, K3 {counts['hybrid']} ({NO_KERNEL_NOTE})",
+          flush=True)
     print(f"diamond io lwe: preimage calls: K_high {len(kh)} ({sum(c for _, c in kh)} columns, "
           f"{sum(m for m, _ in kh) / 1e3:.3f} s), the others (LUT bridge, rebase, refresh, "
           f"output, decoder) {len(other)} ({sum(c for _, c in other)} columns, "
@@ -3046,7 +3062,6 @@ def drive_diamond_io_noise(dev, timing) -> dict:
         DebugBGGEncodingPltEvaluator,
         DebugBGGPubKeyPltEvaluator,
     )
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ring.params import RingParams
 
     p = RingParams.new(*DIO_NOISE_RING)
@@ -3066,7 +3081,7 @@ def drive_diamond_io_noise(dev, timing) -> dict:
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        four_step.launches.update(fwd=0, inv=0)
+        reset_launches()
         with SpanLog() as obf_log:
             obf, ms_obf = timed(lambda: dio.obfuscate(tmp, xor_builder))
         nbytes = dir_bytes(tmp)
@@ -3078,7 +3093,7 @@ def drive_diamond_io_noise(dev, timing) -> dict:
                 out, ms = timed(lambda b=bits: dio.eval(tmp, obf, xor_builder, b))
             results.append((bits, out, ms, list(dio.last_decode_margins), log,
                             torch.cuda.max_memory_allocated()))
-        counts = dict(four_step.launches)
+        counts = launch_counts()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     ok_dec = all(out == [b[0] ^ b[1]] for b, out, *_ in results)
@@ -3106,7 +3121,8 @@ def drive_diamond_io_noise(dev, timing) -> dict:
           f"packages); worst observed error {observed_bits} bits, composed simulated bound "
           f"{bound_bits} bits (replay mode; {ms_sim / 1e3:.3f} s on the host): observed <= bound "
           f"<= observed + 80 {ok_bound}; artifacts {nbytes} B (directory deleted); launches in "
-          f"the phase: fwd {counts['fwd']}, inv {counts['inv']} ({NO_KERNEL_NOTE})", flush=True)
+          f"the phase: fwd {counts['fwd']}, inv {counts['inv']}, K3 {counts['hybrid']} "
+          f"({K3_ONLY_NOTE})", flush=True)
     timing("diamond io noise: obfuscate", ms_obf / 1e3, "s", span_line(obf_log, (
         ("injector preprocess", "diamond_injector.preprocess"),
         ("PRF public-key path", "prf_pipeline.pk_round_packed"),
@@ -3123,6 +3139,8 @@ def drive_diamond_io_noise(dev, timing) -> dict:
            f"; artifacts {nbytes} B")
     if not (ok_dec and ok_bound):
         raise SystemExit("chip_smoke: Diamond iO noise check failed")
+    if counts["hybrid"] == 0:
+        raise SystemExit("chip_smoke: the diamond io noise phase did not go through K3")
     return {"launches": counts, "obfuscate_ms": ms_obf, "eval_ms": [r[2] for r in results],
             "observed_bits": observed_bits, "bound_bits": bound_bits}
 
@@ -3143,7 +3161,6 @@ def drive_mesh(dev, timing, lwe_ms) -> dict:
     import torch
 
     from mxx_tpu_torch.matrix import PolyMatrix
-    from mxx_tpu_torch.ops import four_step
     from mxx_tpu_torch.ops.zq_matmul import zq_matmul
     from mxx_tpu_torch.parallel import (
         LIMB_AXIS,
@@ -3183,10 +3200,10 @@ def drive_mesh(dev, timing, lwe_ms) -> dict:
     same_card = all(torch.equal(g.data, w.data) for g, w in zip(got, want))
     del got, want
     torch.cuda.synchronize()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     xs = ts.preimage_batched_sharded(pp, td, a, targets, mesh=m14)
     torch.cuda.synchronize()
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     exact = all(x.ncol == t.ncol and (a @ x) == t for x, t in zip(xs, targets))
     total = sum(MESH_REQUESTS)
     width = -(-total // 4)
@@ -3357,6 +3374,164 @@ def drive_mesh(dev, timing, lwe_ms) -> dict:
     return {"preimage": counts, "lwe": lut_counts}
 
 
+K3_ROWS = (((32768, 10, 24, 12), 500), ((65536, 10, 24, 12), 250), ((256, 3, 24, 5), 4096))
+K1_K3_TURNS = (((16384, 10, 24, 12), 1000), ((8192, 8, 28, 14), 512))
+
+
+def drive_kernel_rows(dev, timing, pp, xm, by_path, lut_counts, radix_counts, radix_err,
+                      noise_hybrid, at_a) -> list:
+    """The kernels line's rows: K1/K2 at xm ([10, 1000, 16384], the
+    preimage's largest transform), K3's head there and its whole transform
+    there and at K3_ROWS, each against its plain version, the radix chain and
+    (at 2^14) K1, with its time, bounds, plain and chain times; the production
+    ring's ntt_fwd_auto and, above 2^14, ntt_inv_auto (the radix chain); K1
+    against K3 in turns at K1_K3_TURNS."""
+    import torch
+
+    from mxx_tpu_torch.ops import four_step, hybrid_ntt
+    from mxx_tpu_torch.ring import ntt
+    from mxx_tpu_torch.ring.params import RingParams
+
+    tpp = pp.tables(dev)
+    kernels = []
+
+    def k3_tail(x, p):  # the stages t < 128 after the head, plain
+        t = p.tables(dev)
+        flat = x.reshape(x.shape[0], -1, p.n)
+        return hybrid_ntt._radix2(flat, t.psi_rev, t.moduli, p.n // hybrid_ntt.LANE,
+                                  p.n).reshape(x.shape)
+
+    k3_rings = {pp.n: (pp, xm)}
+    for args, B in K3_ROWS:
+        pk = RingParams.new(*args)
+        k3_rings[pk.n] = (pk, residues(pk, (B,), 7, dev))
+    # the production ring's transform, routed by ntt_fwd_auto (K3 above 2^14)
+    pr, xr = k3_rings[max(k3_rings)]
+    reset_launches()
+    auto = ntt.ntt_fwd_auto(xr, pr)
+    torch.cuda.synchronize()
+    auto_counts = launch_counts()
+    by_path["hybrid"][f"production ring (ntt_fwd_auto, {list(xr.shape)})"] = auto_counts["hybrid"]
+    tpr = pr.tables(dev)
+    ok_auto = torch.equal(auto, ntt.ntt_fwd(xr, tpr.psi_rev, tpr.moduli))
+    del auto
+    ms_auto = cuda_ms(lambda: ntt.ntt_fwd_auto(xr, pr), 10)
+    ms_auto_chain = cuda_ms(lambda: ntt.ntt_fwd(xr, tpr.psi_rev, tpr.moduli), 3)
+    timing(f"ntt_fwd_auto {list(xr.shape)} (the production ring n=2^16: K3)", ms_auto, "ms",
+           f"; the radix chain it replaces {ms_auto_chain:.3f} ms; launches K3 "
+           f"{auto_counts['hybrid']}, K1 {auto_counts['fwd']}; equal to the chain {ok_auto} "
+           f"(tolerance 0: bit-exact)")
+    if not ok_auto or auto_counts["hybrid"] != 1:
+        raise SystemExit("chip_smoke: ntt_fwd_auto at n=2^16 did not go through K3 exactly")
+    # the inverse above 2^14 has no kernel yet: ntt_inv_auto runs the radix chain
+    for n, (pk, xk) in k3_rings.items():
+        if n > 16384:
+            ms_inv = cuda_ms(lambda pk=pk, xk=xk: ntt.ntt_inv_auto(xk, pk), 3)
+            timing(f"ntt_inv_auto {list(xk.shape)} (the radix chain)", ms_inv, "ms")
+
+    k1_of = partial(four_step.four_step_ntt_fwd, xm, pp, 128)
+    cases = [
+        dict(name="four_step_ntt_fwd", source="four_step_ntt.cu",
+             replaces="mxx_tpu/ops/pallas_four_step.py:135", launches=lut_counts["fwd"],
+             by_path=by_path["fwd"], x=xm, run=k1_of,
+             plain=partial(four_step.four_step_ntt_fwd_plain, xm, pp, 128),
+             chain=partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), plain_iters=2,
+             products=ntt_products(pp.n, pp.n, True)),
+        dict(name="four_step_ntt_inv", source="four_step_ntt.cu",
+             replaces="mxx_tpu/ops/pallas_four_step.py:135", launches=lut_counts["inv"],
+             by_path=by_path["inv"], x=xm, run=partial(four_step.four_step_ntt_inv, xm, pp, 128),
+             plain=partial(four_step.four_step_ntt_inv_plain, xm, pp, 128),
+             chain=partial(ntt.ntt_inv, xm, tpp.psi_inv_rev, tpp.n_inv, tpp.moduli),
+             plain_iters=2, products=ntt_products(pp.n, pp.n, True)),
+        # the head is held against the chain and K1 through the plain tail stages
+        dict(name="ntt_fwd_head", source="radix_ntt.cu", replaces="mxx_tpu/ops/pallas_ntt.py:37",
+             launches=radix_counts["head"], by_path={"radix path": radix_counts["head"]}, x=xm,
+             run=partial(hybrid_ntt.ntt_fwd_head, xm, pp),
+             plain=partial(hybrid_ntt.ntt_fwd_head_plain, xm, pp),
+             chain=partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), k1=k1_of,
+             then=partial(k3_tail, p=pp), plain_iters=3,
+             products=ntt_products(pp.n, pp.n // hybrid_ntt.LANE)),
+    ]
+    for n, (pk, xk) in k3_rings.items():
+        tk = pk.tables(dev)
+        cases.append(dict(
+            name="ntt_fwd_hybrid" + ("" if n == pp.n else f" {list(xk.shape)}"),
+            source="radix_ntt.cu", replaces="mxx_tpu/ops/pallas_ntt.py:37",
+            launches=noise_hybrid, by_path=by_path["hybrid"], x=xk,
+            run=partial(hybrid_ntt.ntt_fwd_hybrid, xk, pk),
+            plain=partial(hybrid_ntt.ntt_fwd_hybrid_plain, xk, pk),
+            chain=partial(ntt.ntt_fwd, xk, tk.psi_rev, tk.moduli),
+            k1=k1_of if n == pp.n else None, plain_iters=3, products=ntt_products(n, n)))
+    for c in cases:
+        name, source, run, plain, chain = c["name"], c["source"], c["run"], c["plain"], c["chain"]
+        got = run()
+        err = max_err(got, plain())
+        full = c["then"](got) if "then" in c else got
+        err = max(err, max_err(full, chain()))
+        if c.get("k1") is not None:
+            err = max(err, max_err(full, c["k1"]()))
+        if source == "radix_ntt.cu":
+            err = max(err, radix_err)
+        del got, full
+        ms = cuda_ms(run, 10)
+        ms_plain = cuda_ms(plain, c["plain_iters"])
+        ms_chain = cuda_ms(chain, 3)
+        shape = list(c["x"].shape)
+        bound = ntt_bound(shape, c["products"])
+        entry = {"name": name, "route": "cuda", "source": f"mxx_tpu_torch/csrc/{source}",
+                 "replaces": c["replaces"], "launches": c["launches"], "max_abs_err": err,
+                 "ms": ms, "plain_ms": ms_plain, "bound_ms": bound["bound_ms"],
+                 "bound_by": bound["bound_by"], "bytes_ms": bound["bytes_ms"],
+                 "int_floor_ms": bound["int_floor_ms"], "products_per_poly": c["products"],
+                 "bound_ms_u32": bound["bound_ms_u32"], "bound_by_u32": bound["bound_by_u32"],
+                 "pct_of_bound": 100 * bound["bound_ms"] / ms,
+                 "pct_of_bound_u32": 100 * bound["bound_ms_u32"] / ms, "library_ms": None,
+                 "library": "none: no PyTorch call computes an exact NTT mod q",
+                 "shape": shape, "chain_ms": ms_chain, "launches_by_path": c["by_path"]}
+        if name in at_a:
+            entry["at_shape_a"] = at_a[name]
+        timing(name if "[" in name else f"{name} {shape}", ms, "ms",
+               f" kernel ({entry['pct_of_bound']:.1f}% of its bound {bound['bound_ms']:.4f} ms, "
+               f"bound by {bound['bound_by']}; integer floor {bound['int_floor_ms']:.4f} ms "
+               f"({c['products']} modular products per poly); uint32-layout bound "
+               f"{bound['bound_ms_u32']:.4f} ms, bound by {bound['bound_by_u32']}, "
+               f"{entry['pct_of_bound_u32']:.1f}%); plain version {ms_plain:.3f} ms, radix chain "
+               f"{ms_chain:.3f} ms, max |kernel - plain, chain" + (", K1" if c.get("k1") else "")
+               + f"| {err} (tolerance 0: bit-exact)")
+        if err != 0:
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
+        kernels.append(entry)
+        torch.cuda.empty_cache()
+    del k3_rings, xr
+
+    # K1 against K3 in turns (K1, K3, K3, K1; median of 10 each), the measurement
+    # behind ring/ntt.py's routing of 2048 <= n <= 16384
+    faster = []
+    for args, B in K1_K3_TURNS:
+        pk = RingParams.new(*args)
+        xk = xm if pk is pp else residues(pk, (B,), 8, dev)
+        k1 = partial(four_step.four_step_ntt_fwd, xk, pk, pk.n // 128)
+        k3 = partial(hybrid_ntt.ntt_fwd_hybrid, xk, pk)
+        same = torch.equal(k1(), k3())
+        turns = [("K1", cuda_ms(k1, 10)), ("K3", cuda_ms(k3, 10)), ("K3", cuda_ms(k3, 10)),
+                 ("K1", cuda_ms(k1, 10))]
+        ms1 = statistics.median(ms for k, ms in turns if k == "K1")
+        ms3 = statistics.median(ms for k, ms in turns if k == "K3")
+        faster.append(ms3 < ms1)
+        timing(f"K1 against K3 in turns {list(xk.shape)}", ms3 / ms1, "K3/K1",
+               f" (turns {', '.join(f'{k} {ms:.4f} ms' for k, ms in turns)}; K1 {ms1:.4f} ms, "
+               f"K3 {ms3:.4f} ms; equal {same})")
+        if not same:
+            raise SystemExit("chip_smoke: K1 and K3 disagree")
+        del xk
+    routed = ntt.fwd_route("cuda", 8192)
+    print(f"routing of 2048 <= n <= 16384 on the card: the turns support "
+          f"{'K3' if all(faster) else 'K1'} (K3 faster at both shapes: {all(faster)}); "
+          f"ring/ntt.py routes it to {routed.upper()}", flush=True)
+    return kernels
+
+
+
 def main() -> None:
     import torch
 
@@ -3387,7 +3562,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 3. the radix-2 kernel's path
-    radix_counts, radix_err = drive_radix(dev, shapes)
+    radix_counts, radix_err = drive_radix(dev, shapes + [
+        ("D", (32768, 10, 24, 12), 8), ("E", (65536, 10, 24, 12), 4), ("F", (256, 3, 24, 5), 64)])
     torch.cuda.empty_cache()
 
     # 4. the main path
@@ -3396,10 +3572,10 @@ def main() -> None:
     td, a = ts.trapdoor(pp, 1)
     target = UniformSampler(seed=3, device=dev).sample_uniform(pp, 1, 50, FinRingDist())
     torch.cuda.synchronize()
-    four_step.launches.update(fwd=0, inv=0)
+    reset_launches()
     x = ts.preimage(pp, td, a, target)
     torch.cuda.synchronize()
-    counts = dict(four_step.launches)
+    counts = launch_counts()
     k = pp.modulus_digits
     shape_ok = x.shape == (k + 2, 50) and x.data.shape == (10, k + 2, 50, 16384)
     q = pp.tables(dev).moduli.view(-1, 1, 1, 1)
@@ -3557,85 +3733,29 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # each kernel against its plain version at the preimage's largest transform
-    tpp = pp.tables(dev)
+    # (K3 also at 2^15, 2^16 and 256, the rings ring/ntt.py sends through it)
     xm = residues(pp, (1000,), 5, dev)
-    kernels = []
-    # K1/K2: `launches` is the LWE LUT chain's count; each path's own count
-    # (each read around that path alone) is beside it
-    by_path = {d: {"preimage": counts[d], "bgg circuit": bgg_counts[d],
-                   "lwe lut chain": lut_counts[d], "diamond we": we_counts[d],
-                   "aky24 fe": fe_counts[d], "nested rns mul": nested_counts[d],
-                   "noise refresh": refresh_counts[d], "masked decode": decode_counts[d],
-                   "slot transfer": st_counts[d], "ggh15 chain": ggh15_counts[d],
-                   "commit lut": commit_counts[d], "diamond io": dio_counts[d],
-                   "estimators": est_counts[d], "core ops": core_counts[d],
-                   "ckks": ckks_counts[d], "montgomery": mont_counts[d],
-                   "ntt circuit": nttc_counts[d], "diamond io lwe": lwe_dio_counts[d],
-                   "diamond io noise": noise_dio_counts[d],
-                   "mesh (1x4 sharded preimage)": mesh["preimage"][d],
-                   "mesh (lwe lut chain over 1x4)": mesh["lwe"][d]}
-               for d in ("fwd", "inv")}
-    cases = [
-        ("four_step_ntt_fwd", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
-         lut_counts["fwd"],
-         partial(four_step.four_step_ntt_fwd, xm, pp, 128),
-         partial(four_step.four_step_ntt_fwd_plain, xm, pp, 128),
-         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 2, ntt_products(pp.n, pp.n, True)),
-        ("four_step_ntt_inv", "four_step_ntt.cu", "mxx_tpu/ops/pallas_four_step.py:135",
-         lut_counts["inv"],
-         partial(four_step.four_step_ntt_inv, xm, pp, 128),
-         partial(four_step.four_step_ntt_inv_plain, xm, pp, 128),
-         partial(ntt.ntt_inv, xm, tpp.psi_inv_rev, tpp.n_inv, tpp.moduli), 2,
-         ntt_products(pp.n, pp.n, True)),
-        ("ntt_fwd_head", "radix_ntt.cu", "mxx_tpu/ops/pallas_ntt.py:37", radix_counts["head"],
-         partial(hybrid_ntt.ntt_fwd_head, xm, pp),
-         partial(hybrid_ntt.ntt_fwd_head_plain, xm, pp), None, 3,
-         ntt_products(pp.n, pp.n // hybrid_ntt.LANE)),
-        ("ntt_fwd_hybrid", "radix_ntt.cu", "mxx_tpu/ops/pallas_ntt.py:37",
-         radix_counts["hybrid"],
-         partial(hybrid_ntt.ntt_fwd_hybrid, xm, pp),
-         partial(hybrid_ntt.ntt_fwd_hybrid_plain, xm, pp),
-         partial(ntt.ntt_fwd, xm, tpp.psi_rev, tpp.moduli), 3, ntt_products(pp.n, pp.n)),
-    ]
-    for name, source, replaces, launches, run, plain, chain, plain_iters, products in cases:
-        got = run()
-        err = max_err(got, plain())
-        if chain is not None:
-            err = max(err, max_err(got, chain()))
-        if source == "radix_ntt.cu":
-            err = max(err, radix_err)
-        del got
-        ms = cuda_ms(run, 10)
-        ms_plain = cuda_ms(plain, plain_iters)
-        bound = ntt_bound(xm.shape, products)
-        extra = (f" kernel ({100 * bound['bound_ms'] / ms:.1f}% of its bound "
-                 f"{bound['bound_ms']:.4f} ms, bound by {bound['bound_by']}; integer floor "
-                 f"{bound['int_floor_ms']:.4f} ms ({products} modular products per poly); "
-                 f"uint32-layout bound {bound['bound_ms_u32']:.4f} ms, bound by "
-                 f"{bound['bound_by_u32']}); plain version {ms_plain:.3f} ms")
-        entry = {"name": name, "route": "cuda", "source": f"mxx_tpu_torch/csrc/{source}",
-                 "replaces": replaces, "launches": launches, "max_abs_err": err,
-                 "ms": ms, "plain_ms": ms_plain, "bound_ms": bound["bound_ms"],
-                 "bound_by": bound["bound_by"], "bytes_ms": bound["bytes_ms"],
-                 "int_floor_ms": bound["int_floor_ms"], "products_per_poly": products,
-                 "bound_ms_u32": bound["bound_ms_u32"], "bound_by_u32": bound["bound_by_u32"],
-                 "pct_of_bound": 100 * bound["bound_ms"] / ms, "library_ms": None,
-                 "library": "none: no PyTorch call computes an exact NTT mod q"}
-        if source == "four_step_ntt.cu":
-            entry["launches_by_path"] = by_path[name[-3:]]
-            entry["at_shape_a"] = at_a[name]
-        else:  # K3 runs on its own path only
-            entry["launches_by_path"] = {"radix path": launches}
-        if chain is not None:
-            ms_chain = cuda_ms(chain, 3)
-            entry["chain_ms"] = ms_chain
-            extra += f", radix chain {ms_chain:.3f} ms"
-        timing(f"{name} [10, 1000, 16384]", ms, "ms",
-               f"{extra}, max |kernel - plain| {err} (tolerance 0: bit-exact)")
-        if err != 0:
-            raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
-        kernels.append(entry)
-        torch.cuda.empty_cache()
+    # `launches` is the count of one path: the LWE LUT chain's for K1/K2, the
+    # diamond io noise phase's for K3 (the production path the routing sends
+    # through it), the radix path's for K3's head; each path's own count (each
+    # read around that path alone) is beside it
+    paths = {"preimage": counts, "bgg circuit": bgg_counts, "lwe lut chain": lut_counts,
+             "diamond we": we_counts, "aky24 fe": fe_counts, "nested rns mul": nested_counts,
+             "noise refresh": refresh_counts, "masked decode": decode_counts,
+             "slot transfer": st_counts, "ggh15 chain": ggh15_counts,
+             "commit lut": commit_counts, "diamond io": dio_counts, "estimators": est_counts,
+             "core ops": core_counts, "ckks": ckks_counts, "montgomery": mont_counts,
+             "ntt circuit": nttc_counts, "diamond io lwe": lwe_dio_counts,
+             "diamond io noise": noise_dio_counts,
+             "mesh (1x4 sharded preimage)": mesh["preimage"],
+             "mesh (lwe lut chain over 1x4)": mesh["lwe"]}
+    by_path = {d: {name: c[d] for name, c in paths.items()} for d in ("fwd", "inv", "hybrid")}
+    by_path["hybrid"]["radix path"] = radix_counts["hybrid"]
+
+    kernels = drive_kernel_rows(dev, timing, pp, xm, by_path, lut_counts, radix_counts,
+                                radix_err, noise_dio_counts["hybrid"], at_a)
+    del xm
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,9 +9,18 @@ pointwise products in EVAL realize negacyclic convolution.
 Shapes: x is int64[L, ..., n]; twiddle tables are int64[L, n] in standard
 form; per-limb constants are int64[L].
 
-`ntt_fwd_auto` / `ntt_inv_auto` route as the JAX package does: a tensor on
-a CUDA device with 2048 <= n <= 16384 goes through the hand-written four-step
-kernels (ops/four_step.py), everything else through the radix-2/4 chain here.
+`ntt_inv_auto` routes as the JAX package does: a tensor on a CUDA device with
+2048 <= n <= 16384 goes through the hand-written four-step kernel K2
+(ops/four_step.py), everything else through the radix-2/4 chain here.
+`ntt_fwd_auto` routes by `fwd_route`, a fixed rule over n: on a card, K1 (the
+four-step forward kernel) for 2048 <= n <= 16384 as in the JAX package, and
+the radix-2 kernel K3 (ops/hybrid_ntt.py) for 256 <= n < 2048 and
+16384 < n <= 65536, where the JAX package runs the jnp chain; the chain
+everywhere else and on the CPU. The JAX package's TPU has no kernel for those
+n (its radix-2 head stops at t = 128 and the tail is jnp); on the card K3 runs
+all log2(n) stages in one launch, where the chain launches a few dozen torch
+operations per transform (PERF.md §6 gives the times). Every route computes
+the same transform, bit for bit.
 """
 
 from __future__ import annotations
@@ -155,18 +164,43 @@ def _fused_plan(x: torch.Tensor) -> int | None:
     return n // four_step.KERNEL_N2
 
 
+# ring degrees whose forward transforms go through K3 on a card: the rest of
+# the radix-2 kernel's range 256 <= n <= 65536 goes through K1, which ran
+# faster there on an H100 (PERF.md §6: K1 against K3 in turns at
+# [10, 1000, 16384] and [8, 512, 8192], printed by chip_smoke.py)
+K3_FWD_RANGES = ((256, 1024), (32768, 65536))
+
+
+def fwd_route(device_type: str, n: int) -> str:
+    """Which kernel takes a forward transform of ring degree n (a power of
+    two) on a device of this type: "k1", "k3" or "chain"."""
+    if device_type != "cuda":
+        return "chain"
+    if any(lo <= n <= hi for lo, hi in K3_FWD_RANGES):
+        return "k3"
+    if 2048 <= n <= 16384:
+        return "k1"
+    return "chain"
+
+
 def ntt_fwd_auto(x: torch.Tensor, params) -> torch.Tensor:
-    """Production forward NTT: the CUDA four-step kernel when the tensor is
-    on a card and n qualifies, else the radix chain. Both are bit-exact."""
-    n1 = _fused_plan(x)
-    if n1 is not None:
+    """Production forward NTT, routed by `fwd_route`. Every route is
+    bit-exact."""
+    route = fwd_route(x.device.type, x.shape[-1])
+    if route == "k3":
+        from ..ops import hybrid_ntt  # imports this module
+
+        return hybrid_ntt.ntt_fwd_hybrid(x.contiguous(), params)
+    if route == "k1":
+        n1 = x.shape[-1] // four_step.KERNEL_N2
         return four_step.four_step_ntt_fwd(x.contiguous(), params, n1)
     t = params.tables(x.device)
     return ntt_fwd(x, t.psi_rev, t.moduli)
 
 
 def ntt_inv_auto(x: torch.Tensor, params) -> torch.Tensor:
-    """Production inverse NTT (see ntt_fwd_auto)."""
+    """Production inverse NTT: K2 on a card for 2048 <= n <= 16384, else the
+    radix chain. Both are bit-exact."""
     n1 = _fused_plan(x)
     if n1 is not None:
         return four_step.four_step_ntt_inv(x.contiguous(), params, n1)
