@@ -228,7 +228,24 @@ no package beside it, a kernel that does not build, launch or agree):
    `modulus_switch` for the three P; (v) phase 7's LWE chain with its
    K_high preimages over the 1x4 mesh, every check of phase 7, its times
    beside phase 7's;
-26. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+26. `diamond io real`: real-mode Diamond iO at the config of the JAX
+   package's `test_diamond_io_real_mode_e2e` (n=2, L=2, crt_bits 9,
+   base_bits 9, seed_bits 5, wide p-basis below 2^8, max_unreduced_muls 2,
+   no debug flag, every wire refreshed, PRG-derived refresh material,
+   input_count 1, batch_bits 1, seed 7, error sigma 0, trapdoor sigma
+   4.578, debug LUT evaluators, builder [bits[0]]): obfuscate into a
+   temporary directory, evaluate [0] and [1], delete it; checked: both
+   decode, no PRG ciphertext in the obfuscation, c_one == sigma (A_one -
+   G), B0 P == target for every rebase and refresh preimage of branch 0
+   (targets captured at the calls), the online PRG wires' public keys equal
+   the offline pass's of the selected branch, all exact; printed: gate and
+   level counts of each branch's PRG round circuit, of the refresh-material
+   circuits and of the wrapped circuit, times by span (PRG round and
+   material builds and passes, targets, preimages, writes, reads, wrapped
+   passes), gates/s per pass, preimage calls and columns, files and bytes,
+   peak device memory and host RSS, and the K1/K2/K3 launches (none: n=2
+   takes the radix chain both ways);
+27. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, the two batched BGG passes, and a profiled batched encoding pass,
@@ -241,7 +258,7 @@ no package beside it, a kernel that does not build, launch or agree):
    [10, 500, 32768], [10, 250, 65536] and [3, 4096, 256]; and K1 against K3
    in turns (K1, K3, K3, K1) at [10, 1000, 16384] and [8, 512, 8192], with
    the routing of 2048 <= n <= 16384 they support beside ring/ntt.py's;
-27. one JSON line of kernels (`launches` from one path: the LWE LUT chain
+28. one JSON line of kernels (`launches` from one path: the LWE LUT chain
    for K1/K2, the diamond io noise phase for K3's whole transform, K3's own
    path for its head; each path's count beside it in `launches_by_path`;
    each row's least time `bound_ms`, the larger of its device-memory time
@@ -3145,6 +3162,223 @@ def drive_diamond_io_noise(dev, timing) -> dict:
             "observed_bits": observed_bits, "bound_bits": bound_bits}
 
 
+DIO_REAL_RING = (2, 2, 9, 9)  # tests/test_diamond_io.py `test_diamond_io_real_mode_e2e`
+
+
+def real_prf_config():
+    from mxx_tpu_torch.io_protocols.prf_mask import PrfConfig
+
+    # tests/test_diamond_io.py `test_diamond_io_real_mode_e2e`: no debug flag,
+    # every wire refreshed, PRG-derived refresh material
+    return PrfConfig(seed_bits=5, prf_mask_output_coeff_bits=1, p_moduli_bits=8,
+                     max_unreduced_muls=2, noise_refresh_v_bits=1, p_basis="wide",
+                     debug_encrypt_random_prg_wires=False, debug_reuse_single_material=False,
+                     refresh_wire_limit=None)
+
+
+def circuit_shape(circuit) -> str:
+    from mxx_tpu_torch.circuit.arena_eval import plan
+
+    levels = len({depth for _, depth, _ in plan(circuit).groups})
+    return f"{circuit.num_gates()} gates in {levels} levels"
+
+
+def drive_diamond_io_real(dev, timing) -> dict:
+    """Real-mode Diamond iO at the config of the JAX package's
+    `test_diamond_io_real_mode_e2e`: RingParams.new(2, 2, 9, 9), no debug
+    flag (the Goldreich PRG round runs in-circuit over the seed ciphertexts'
+    wires, the refresh material comes from in-circuit PRG streams, every wire
+    is refreshed), input_count 1, batch_bits 1, seed 7, error sigma 0,
+    trapdoor sigma 4.578, the debug LUT evaluators, builder [bits[0]].
+    Obfuscate into a temporary directory, evaluate [0] and [1], delete it.
+    Checks, all exact: both decodes; no PRG ciphertext in the obfuscation;
+    c_one == sigma (A_one - G); B0 P == target for every rebase and refresh
+    preimage of branch 0 (targets captured at the calls); the online PRG
+    wires' public keys equal the offline pass's of the selected branch.
+    Returns the K1/K2/K3 launch counts ("launches") and the times."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxx_tpu_torch.bgg import BGGPublicKeySampler
+    from mxx_tpu_torch.io_protocols import DiamondIO
+    from mxx_tpu_torch.io_protocols.prf_mask import PrfMaskPipeline
+    from mxx_tpu_torch.lookup.debug import (
+        DebugBGGEncodingPltEvaluator,
+        DebugBGGPubKeyPltEvaluator,
+    )
+    from mxx_tpu_torch.matrix import PolyMatrix, rows
+    from mxx_tpu_torch.noise_refresh.naive_vec import NoiseRefresherNaiveVec
+    from mxx_tpu_torch.ring.params import RingParams
+
+    p = RingParams.new(*DIO_REAL_RING)
+    dio = DiamondIO(
+        p, input_count=1, batch_bits=1, seed=7, trapdoor_sigma=TRAPDOOR_SIGMA,
+        prf_config=real_prf_config(), device=dev,
+        pk_plt_evaluator_factory=lambda s, d, hk, pre: DebugBGGPubKeyPltEvaluator(hk),
+        enc_plt_evaluator_factory=lambda s, d, obf, states, digits:
+            DebugBGGEncodingPltEvaluator(obf.hash_key,
+                                         s.injector.debug_final_secret_matrix(d, digits)),
+    )
+    # the PRF pipeline's preimage calls (targets and preimages, in call order:
+    # per branch its rebase call, then its refresh call) and its PRG rounds
+    calls, rounds, built = [], [], []
+    cls = PrfMaskPipeline
+    orig_pre, orig_round = cls._preimages, cls._eval_prg_round
+    orig_build, orig_material = cls.build_prg_round_circuit, NoiseRefresherNaiveVec._prg_material_circuit
+
+    def preimages(self, td0, b0, targets):
+        out = orig_pre(self, td0, b0, targets)
+        calls.append((targets, out))
+        return out
+
+    def prg_round(self, round_idx, one_wire, seed_wires, plt_evaluator, only_branch=None):
+        out = orig_round(self, round_idx, one_wire, seed_wires, plt_evaluator, only_branch)
+        rounds.append((only_branch, [w for chunk in out[only_branch] for w in chunk]))
+        return out
+
+    # the shape of each circuit the obfuscation builds, taken where it is built
+    # (the pipeline keeps no circuit)
+    def build_round(self, round_idx, only_branch=None, representative=False):
+        c = orig_build(self, round_idx, only_branch, representative)
+        built.append((f"PRG round, branch {only_branch}", circuit_shape(c)))
+        return c
+
+    def build_material(self, graph_seed, seed_bits, cbd_n):
+        c = orig_material(self, graph_seed, seed_bits, cbd_n)
+        built.append(("refresh material", circuit_shape(c)))
+        return c
+
+    parts: dict = {}
+    instrument(dio._trap, "preimage_batched_sharded", parts, "preimage calls",
+               lambda a, out: sum(t.ncol for t in a[3]))
+    tmp = Path(tempfile.mkdtemp(prefix="mxx_diamond_io_real_"))
+    cls._preimages, cls._eval_prg_round = preimages, prg_round
+    cls.build_prg_round_circuit = build_round
+    NoiseRefresherNaiveVec._prg_material_circuit = build_material
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with SpanLog() as obf_log, HostRssPeak() as rss:
+            obf, ms_obf = timed(lambda: dio.obfuscate(tmp, first_bit_builder))
+        files = [f for f in tmp.iterdir() if f.is_file()]
+        nbytes = sum(f.stat().st_size for f in files)
+        peak_obf = torch.cuda.max_memory_allocated()
+        n_pre_calls = len(parts["preimage calls"])
+        pre_cols = sum(c for _, c in parts["preimage calls"])
+        offline = {b: wires for b, wires in rounds}
+        shapes = {}
+        for label, shape in built:
+            if label == "refresh material":
+                label = f"refresh material, branch {sum(k.startswith(label) for k in shapes)}"
+            shapes[label] = shape
+        results = []
+        for bits in ([0], [1]):
+            torch.cuda.reset_peak_memory_stats()
+            del rounds[:]
+            with SpanLog() as log, HostRssPeak() as eval_rss:
+                out, ms = timed(lambda b=bits: dio.eval(tmp, obf, first_bit_builder, b))
+            # the online PRG wires' public keys against the offline pass's
+            (branch, online), = rounds
+            ok_pk = len(online) == len(offline[branch]) and torch.equal(
+                rows.stack(p, [w.pubkey.matrix for w in online]),
+                rows.stack(p, [w.matrix for w in offline[branch]]))
+            results.append((bits, out, ms, log, torch.cuda.max_memory_allocated(), ok_pk,
+                            eval_rss.note()))
+        counts = launch_counts()
+        digits = [1]
+        states = dio.injector.online_eval(tmp, obf.preprocess_out, digits)
+        sigma = dio.injector.debug_final_secret_matrix(tmp, digits)
+        one_pk = BGGPublicKeySampler(obf.hash_key, 1, dev).sample(p, b"diamond_bgg", [True])[0]
+        c_one = states[0] @ dio._read(tmp, "one_preimage")
+        ok_one = c_one == sigma @ (one_pk.matrix - PolyMatrix.gadget_matrix(p, 1, dev))
+        # B0 P == target for every rebase and refresh preimage of branch 0
+        b0 = obf.preprocess_out.final_checkpoint(0)[1]
+        checked = 0
+        ok_pre = len(calls) == 4
+        for targets, pres in calls[:2]:
+            got = rows.matmul_left(p, b0, rows.stack(p, pres).transpose(0, 1))
+            ok_pre = ok_pre and torch.equal(got, rows.stack(p, targets))
+            checked += len(targets)
+        torch.cuda.synchronize()
+    finally:
+        cls._preimages, cls._eval_prg_round = orig_pre, orig_round
+        cls.build_prg_round_circuit = orig_build
+        NoiseRefresherNaiveVec._prg_material_circuit = orig_material
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    prf = dio._prf_pipeline()
+    ok_dec = all(out == [b[0]] for b, out, *_ in results)
+    ok_replay = obf.prf_debug is None or not obf.prf_debug.prg_cts
+    ok_pks = all(r[5] for r in results)
+    wires = len(offline[0])
+    wrapped = [r.fields["gates"] for r in obf_log.records
+               if getattr(r, "span", None) == "diamond_io.pk_circuit_eval"]
+    shapes["wrapped"] = f"{wrapped[0]} gates"
+    print(f"diamond io real n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits "
+          f"{p.base_bits}, real mode (in-circuit PRG rounds, PRG-derived refresh material, "
+          f"every wire refreshed), wide p-basis of {len(prf.ctx.nested.p_moduli)} moduli below "
+          f"2^8, {prf.wires_per_ct} wires per GSW ciphertext, {wires} PRG output wires per "
+          f"branch: circuits {shapes}", flush=True)
+    for bits, out, ms, log, peak, ok_pk, note in results:
+        print(f"diamond io real eval {bits}: decoded {out}, want {[bits[0]]}; online PRG wires' "
+              f"public keys == the offline pass's of branch {bits[0]} {ok_pk}", flush=True)
+    print(f"diamond io real: decodes {ok_dec}, no PRG ciphertext in the obfuscation "
+          f"{ok_replay}, c_one == sigma (A_one - G) {ok_one}, B0 P == target for every rebase "
+          f"and refresh preimage of branch 0 {ok_pre} ({checked} preimages), online PRG "
+          f"public keys == offline {ok_pks} (tolerance 0: exact); preimage calls {n_pre_calls} "
+          f"({pre_cols} columns); artifacts {len(files)} files, {nbytes} B (directory deleted); "
+          f"launches in the phase: fwd {counts['fwd']}, inv {counts['inv']}, K3 "
+          f"{counts['hybrid']} ({NO_KERNEL_NOTE})", flush=True)
+
+    def rates(log) -> str:
+        out = []
+        for label, name in (("PRG round", "prf_pipeline.prg_round_circuit"),
+                            ("refresh material", "noise_refresh.prg_material_circuit"),
+                            ("wrapped", "diamond_io.pk_circuit_eval"),
+                            ("wrapped", "diamond_io.enc_circuit_eval")):
+            recs = [r for r in log.records if getattr(r, "span", None) == name]
+            if recs:
+                g = sum(r.fields["gates"] for r in recs)
+                ms = sum(r.elapsed_ms for r in recs)
+                out.append(f"{label} {g / ms * 1e3:.0f} gates/s ({g} gates, {ms / 1e3:.3f} s)")
+        return "; gates/s per pass: " + ", ".join(out)
+
+    timing("diamond io real: obfuscate", ms_obf / 1e3, "s", span_line(obf_log, (
+        ("injector preprocess", "diamond_injector.preprocess"),
+        ("PRF public-key path", "prf_pipeline.pk_round"),
+        ("of it PRG round builds", "prf_pipeline.prg_round_build"),
+        ("PRG round passes", "prf_pipeline.prg_round_circuit"),
+        ("refresh material builds", "noise_refresh.prg_material_build"),
+        ("refresh material passes", "noise_refresh.prg_material_circuit"),
+        ("rebase targets", "prf_pipeline.rebase_targets"),
+        ("refresh targets", "prf_pipeline.refresh_targets"),
+        ("preimages", "prf_pipeline.preimages"),
+        ("writes", "prf_pipeline.writes"),
+        ("wrapped pubkey pass", "diamond_io.pk_circuit_eval"))) + rates(obf_log)
+        + f"; {rss.note()}")
+    for bits, out, ms, log, peak, ok_pk, note in results:
+        timing(f"diamond io real: eval {bits}", ms / 1e3, "s", span_line(log, (
+            ("injector online", "diamond_injector.online_eval"),
+            ("PRF encoding path", "prf_pipeline.enc_round"),
+            ("of it PRG round build", "prf_pipeline.prg_round_build"),
+            ("PRG round pass", "prf_pipeline.prg_round_circuit"),
+            ("refresh material build", "noise_refresh.prg_material_build"),
+            ("refresh material pass", "noise_refresh.prg_material_circuit"),
+            ("rebase", "prf_pipeline.rebase_online"),
+            ("reads", "prf_pipeline.reads"),
+            ("refresh", "prf_pipeline.refresh_online"),
+            ("wrapped encoding pass", "diamond_io.enc_circuit_eval"))) + rates(log)
+            + f"; peak device memory {peak / 2**30:.3f} GiB; {note}")
+    timing("diamond io real: obfuscate peak device memory", peak_obf / 2**30, "GiB")
+    if not (ok_dec and ok_replay and ok_one and ok_pre and ok_pks):
+        raise SystemExit("chip_smoke: real-mode Diamond iO failed its checks")
+    return {"launches": counts, "obfuscate_ms": ms_obf, "eval_ms": [r[2] for r in results],
+            "files": len(files), "bytes": nbytes}
+
+
 MESH_REQUESTS = (17, 17, 16)  # the bench preimage's 50 columns as three requests
 MESH_PRE_RING = (16384, 10, 24, 12)  # phase 4's ring
 MESH_RING = (8192, 8, 28, 14)  # the limb x column, switch and LWE chain ring
@@ -3679,7 +3913,11 @@ def main() -> None:
     mesh = drive_mesh(dev, timing, lut_ms)
     torch.cuda.empty_cache()
 
-    # 26. timings
+    # 26. real-mode Diamond iO at the JAX package's real-mode test config
+    real_dio_counts = drive_diamond_io_real(dev, timing)["launches"]
+    torch.cuda.empty_cache()
+
+    # 27. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -3746,7 +3984,7 @@ def main() -> None:
              "commit lut": commit_counts, "diamond io": dio_counts, "estimators": est_counts,
              "core ops": core_counts, "ckks": ckks_counts, "montgomery": mont_counts,
              "ntt circuit": nttc_counts, "diamond io lwe": lwe_dio_counts,
-             "diamond io noise": noise_dio_counts,
+             "diamond io noise": noise_dio_counts, "diamond io real": real_dio_counts,
              "mesh (1x4 sharded preimage)": mesh["preimage"],
              "mesh (lwe lut chain over 1x4)": mesh["lwe"]}
     by_path = {d: {name: c[d] for name, c in paths.items()} for d in ("fwd", "inv", "hybrid")}

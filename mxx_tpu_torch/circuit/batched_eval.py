@@ -2,10 +2,11 @@
 
 The port's counterpart of `mxx_tpu/circuit/batched_eval.py`. Gates are walked
 level by level; same-kind same-shape gates within a level collapse into one
-batched op over a row-stacked operand tensor: stacking B one-row wires gives
-[L, B*r, c, n] operands (or [B, L, r, c, n] ones for the matmul) that the
-exact ops (`ew_*`, `zq_matmul`, `digit_decompose`, `ntt_*_auto`) take
-unchanged, so batched results are bit-identical to sequential ones.
+batched op over stacked operands (`Rows`: [L, B, r, c, n] tensors). Each
+kind is written once, in `gate_rows`, over the exact ops (`ew_*`,
+`zq_matmul`, `digit_decompose`, `ntt_*_auto`), so batched results are
+bit-identical to sequential ones; the arena evaluator runs the same
+function over the rows it gathers.
 
 Batched kinds: Add/Sub/Mul/SmallScalarMul/LargeScalarMul over
 BggEncoding/BggPublicKey wires, and over their vec wires
@@ -24,6 +25,12 @@ about a thousand same-kind gates, and one op over all of them at n=2^13, L=8
 would need several times their 8-16 GB in temporaries. Parts give the same
 bits, and each part's inputs are released before the next part runs.
 
+A circuit whose wires are all scalar public keys or all scalar encodings of
+one shape, and whose gates are all batchable kinds or PubLut, goes to the
+arena evaluator (`arena_eval.py`) unless a live-bytes budget is set: no wire
+object exists there between the inputs and the outputs, so the per-gate
+host work of multi-million-gate PRG circuits is index bookkeeping.
+
 Results stay on the device: each gate's output is a view of its batch's
 result tensor. The batched decomposition transforms through `ntt_inv_auto` /
 `ntt_fwd_auto`, so on a card it runs the four-step kernels.
@@ -31,17 +38,20 @@ result tensor. The batched decomposition transforms through `ntt_inv_auto` /
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .. import config
 from ..bgg import BggEncoding, BggPublicKey
 from ..bgg.vec import BGGEncodingVec, BGGPublicKeyVec
 from ..matrix import PolyMatrix
-from ..ops.decompose import digit_decompose
+from ..matrix.rows import decompose as decompose_rows
+from ..matrix.rows import stack as stack_rows
 from ..ops.elementwise import ew_add, ew_mul, ew_sub
 from ..ops.zq_matmul import zq_matmul
-from ..ring.ntt import ntt_fwd_auto, ntt_inv_auto
-from ..ring.poly import COEFF, EVAL, Poly, scalar_poly
+from ..ring.poly import EVAL, Poly, scalar_poly
 from .gate import ADD, INPUT, LARGE_SCALAR_MUL, MUL, PUB_LUT, SMALL_SCALAR_MUL, SUB, Gate
 
 MIN_BATCH = 3
@@ -257,189 +267,111 @@ def _eval_form(w, memo: dict):
     return out
 
 
-def _pk(w) -> PolyMatrix:
-    return w.pubkey.matrix if isinstance(w, BggEncoding) else w.matrix
+class Rows(NamedTuple):
+    """The operands, or the results, of B gates as stacked EVAL tensors:
+    public keys pk [L, B, d, m, n]; over encodings also the vectors vec
+    [L, B, r, m, n] and the plaintexts pt [L, B, n]. A row whose plaintext
+    is not known holds some value, and the caller keeps which are known."""
+
+    pk: torch.Tensor
+    vec: torch.Tensor | None = None
+    pt: torch.Tensor | None = None
 
 
-def _stack(mats) -> torch.Tensor:
-    """EVAL datas of equal-shape matrices, row-concatenated: [L, B*r, c, n]."""
-    return torch.cat([m.to_eval().data for m in mats], dim=1)
-
-
-def _unstack(params, data, count, rows) -> list[PolyMatrix]:
-    """Per-gate matrices: row views of a batched [L, B*rows, c, n] result."""
-    return [PolyMatrix(v, EVAL, params) for v in torch.split(data, rows, dim=1)[:count]]
-
-
-def _stack_polys(polys) -> torch.Tensor:
-    """[L, B, n] EVAL data. Polys all in COEFF form (the gate scalars of a
-    batch) take one batched transform instead of one each."""
-    if all(p.fmt == COEFF for p in polys):
-        return ntt_fwd_auto(torch.stack([p.data for p in polys], dim=1), polys[0].params)
-    return torch.stack([p.to_eval().data for p in polys], dim=1)
-
-
-def _stack_b(mats) -> torch.Tensor:
-    """[B, L, r, c, n] view of the EVAL datas of equal-shape matrices."""
-    data = _stack(mats)
-    L, _, c, n = data.shape
-    return data.reshape(L, len(mats), mats[0].nrow, c, n).transpose(0, 1)
-
-
-def _batched_plaintexts(kind, params, pas, pbs):
-    """Batched plaintext +/-/* for B gates as one op. Gates with a missing
-    operand plaintext get None, as in the per-gate path."""
-    present = [i for i in range(len(pas)) if pas[i] is not None and pbs[i] is not None]
-    out_list = [None] * len(pas)
-    if not present:
-        return out_list
-    q = params.tables(pas[present[0]].data.device).moduli
-    a = _stack_polys([pas[i] for i in present])  # [L, P, n]
-    b = _stack_polys([pbs[i] for i in present])
-    if kind == ADD:
-        out = ew_add(a, b, q)
-    elif kind == SUB:
-        out = ew_sub(a, b, q)
+def rows_of(params, ws) -> tuple[Rows, np.ndarray, np.ndarray]:
+    """The rows of equal-shape scalar BGG+ wires, their reveal flags and
+    which of their plaintexts are known."""
+    if isinstance(ws[0], BggPublicKey):
+        return (Rows(stack_rows(params, [w.matrix for w in ws])),
+                np.array([w.reveal_plaintext for w in ws]), np.zeros(len(ws), dtype=bool))
+    pk = stack_rows(params, [w.pubkey.matrix for w in ws])
+    known = np.array([w.plaintext is not None for w in ws])
+    if known.all():
+        pt = stack_rows(params, [w.plaintext for w in ws])
     else:
-        out = ew_mul(a, b, q)
-    for j, i in enumerate(present):
-        out_list[i] = Poly(out[:, j], EVAL, params)
-    return out_list
+        pt = torch.zeros((params.crt_depth, len(ws), params.n), dtype=torch.int64,
+                         device=pk.device)
+        if known.any():
+            idx = np.nonzero(known)[0]
+            pt[:, torch.from_numpy(idx).to(pk.device)] = stack_rows(
+                params, [ws[i].plaintext for i in idx])
+    return (Rows(pk, stack_rows(params, [w.vector for w in ws]), pt),
+            np.array([w.pubkey.reveal_plaintext for w in ws]), known)
 
 
-def _exec_add_sub(params, gates, wires):
-    ins_a = [wires[g.inputs[0]] for g in gates]
-    ins_b = [wires[g.inputs[1]] for g in gates]
-    kind = gates[0].kind
-    ew = ew_add if kind == ADD else ew_sub
-    enc = isinstance(ins_a[0], BggEncoding)
-    q = params.tables(_pk(ins_a[0]).data.device).moduli
-    B = len(gates)
-    prow = _pk(ins_a[0]).nrow
-    pks = _unstack(params, ew(_stack([_pk(w) for w in ins_a]), _stack([_pk(w) for w in ins_b]), q),
-                   B, prow)
-    if not enc:
-        return [BggPublicKey(pks[i], a.reveal_plaintext and b.reveal_plaintext)
-                for i, (a, b) in enumerate(zip(ins_a, ins_b))]
-    rows = ins_a[0].vector.nrow
-    vec = ew(_stack([w.vector for w in ins_a]), _stack([w.vector for w in ins_b]), q)
-    vecs = _unstack(params, vec, B, rows)
-    pts = _batched_plaintexts(kind, params, [w.plaintext for w in ins_a],
-                              [w.plaintext for w in ins_b])
-    outs = []
-    for i, (a, b) in enumerate(zip(ins_a, ins_b)):
-        reveal = a.pubkey.reveal_plaintext and b.pubkey.reveal_plaintext
-        outs.append(BggEncoding(vecs[i], BggPublicKey(pks[i], reveal), pts[i]))
-    return outs
-
-
-def _scalar_polys(params, gates, resolve, device) -> list[Poly]:
-    """Each gate's scalar poly; gates with one scalar (the slots of a vec
-    gate, a constant used twice) share one."""
-    made: dict = {}
-    out = []
-    for g in gates:
-        scalar = tuple(resolve(g))
-        if scalar not in made:
-            made[scalar] = scalar_poly(params, list(scalar), device)
-        out.append(made[scalar])
-    return out
-
-
-def _exec_scalar_mul(params, gates, wires, resolve):
-    """SmallScalarMul batched: elementwise multiply by per-gate scalar polys."""
-    ins = [wires[g.inputs[0]] for g in gates]
-    device = _pk(ins[0]).data.device
-    scalars = _scalar_polys(params, gates, resolve, device)
-    s_data = _stack_polys(scalars)  # [L, B, n]
-    q = params.tables(device).moduli
-    enc = isinstance(ins[0], BggEncoding)
-    B = len(gates)
-
-    def mul_stacked(mats):
-        rows = mats[0].nrow
-        s = s_data.repeat_interleave(rows, dim=1)[:, :, None, :]  # [L, B*rows, 1, n]
-        return _unstack(params, ew_mul(_stack(mats), s, q), B, rows)
-
-    pks = mul_stacked([_pk(w) for w in ins])
-    if not enc:
-        return [BggPublicKey(pks[i], w.reveal_plaintext) for i, w in enumerate(ins)]
-    vecs = mul_stacked([w.vector for w in ins])
-    pts = _batched_plaintexts(MUL, params, [w.plaintext for w in ins], scalars)
-    return [BggEncoding(vecs[i], BggPublicKey(pks[i], w.pubkey.reveal_plaintext), pts[i])
-            for i, w in enumerate(ins)]
-
-
-def _batched_decompose(params, mats) -> torch.Tensor:
-    """G^{-1} of B equal-shape matrices, transformed to EVAL form, as one
-    batch: [B, L, r*k, c, n], ready for the exact matmul."""
-    p = params
-    if all(m.fmt == EVAL for m in mats):
-        data = ntt_inv_auto(_stack(mats), p)  # one batched inverse transform
-    else:
-        data = torch.cat([m.to_coeff().data for m in mats], dim=1)  # [L, B*r, c, n]
-    t = p.tables(data.device)
-    dec = digit_decompose(
-        data, t.moduli, t.digit_masks,
-        base_bits=p.base_bits, dpt=p.digits_per_tower, towers=p.crt_depth,
-    )  # [L, B*r*k, c, n] COEFF
-    dec = ntt_fwd_auto(dec, p)
-    L, _, c, n = dec.shape
-    return dec.reshape(L, len(mats), mats[0].nrow * p.modulus_digits, c, n).transpose(0, 1)
-
-
-def _exec_mul(params, gates, wires):
-    """BGG mul batched: out = a.vector @ G^{-1}(A_b) + x_a * b.vector."""
-    ins_a = [wires[g.inputs[0]] for g in gates]
-    ins_b = [wires[g.inputs[1]] for g in gates]
-    B = len(gates)
-    dec = _batched_decompose(params, [_pk(w) for w in ins_b])  # [B, L, m, c, n]
-    q = params.tables(dec.device).moduli
-    out_pk = zq_matmul(_stack_b([_pk(w) for w in ins_a]), dec, q)  # [B, L, r, c, n]
-    pks = [PolyMatrix(out_pk[i], EVAL, params) for i in range(B)]
-    if not isinstance(ins_a[0], BggEncoding):
-        return [BggPublicKey(pks[i], a.reveal_plaintext and b.reveal_plaintext)
-                for i, (a, b) in enumerate(zip(ins_a, ins_b))]
-    first = zq_matmul(_stack_b([w.vector for w in ins_a]), dec, q)  # [B, L, r, c, n]
-    rows = ins_b[0].vector.nrow
-    x_a = _stack_polys([w.plaintext for w in ins_a])  # [L, B, n]
-    second = ew_mul(_stack([w.vector for w in ins_b]),
-                    x_a.repeat_interleave(rows, dim=1)[:, :, None, :], q)  # [L, B*r, c, n]
-    fB, fL, fr, fc, fn = first.shape
-    vec = ew_add(first.transpose(0, 1).reshape(fL, fB * fr, fc, fn), second, q)
-    vecs = _unstack(params, vec, B, rows)
-    pts = _batched_plaintexts(MUL, params, [w.plaintext for w in ins_a],
-                              [w.plaintext for w in ins_b])
-    outs = []
-    for i, (a, b) in enumerate(zip(ins_a, ins_b)):
-        reveal = a.pubkey.reveal_plaintext and b.pubkey.reveal_plaintext
-        outs.append(BggEncoding(vecs[i], BggPublicKey(pks[i], reveal), pts[i]))
-    return outs
-
-
-def _exec_large_scalar_mul(params, gates, wires, resolve):
-    """LargeScalarMul batched: out = w @ G^{-1}(c * G) per gate scalar c."""
-    ins = [wires[g.inputs[0]] for g in gates]
-    device = _pk(ins[0]).data.device
-    B = len(gates)
-    scalars = _scalar_polys(params, gates, resolve, device)
-    d = _pk(ins[0]).nrow
-    g_data = PolyMatrix.gadget_matrix(params, d, device).data  # [L, d, m, n] EVAL
-    q = params.tables(device).moduli
-    sg = ew_mul(g_data.repeat(1, B, 1, 1),
-                _stack_polys(scalars).repeat_interleave(d, dim=1)[:, :, None, :], q)
-    dec = _batched_decompose(params, _unstack(params, sg, B, d))  # [B, L, d*k, m, n]
-    out_pk = zq_matmul(_stack_b([_pk(w) for w in ins]), dec, q)
-    pks = [PolyMatrix(out_pk[i], EVAL, params) for i in range(B)]
-    if not isinstance(ins[0], BggEncoding):
-        return [BggPublicKey(pks[i], w.reveal_plaintext) for i, w in enumerate(ins)]
-    out_vec = zq_matmul(_stack_b([w.vector for w in ins]), dec, q)
-    pts = _batched_plaintexts(MUL, params, [w.plaintext for w in ins], scalars)
+def wires_of(params, out: Rows, reveal, known) -> list:
+    """The wires of B result rows (views)."""
+    pks = [PolyMatrix(out.pk[:, i], EVAL, params) for i in range(out.pk.shape[1])]
+    if out.vec is None:
+        return [BggPublicKey(m, bool(r)) for m, r in zip(pks, reveal)]
     return [
-        BggEncoding(PolyMatrix(out_vec[i], EVAL, params),
-                    BggPublicKey(pks[i], w.pubkey.reveal_plaintext), pts[i])
-        for i, w in enumerate(ins)
+        BggEncoding(PolyMatrix(out.vec[:, i], EVAL, params), BggPublicKey(m, bool(reveal[i])),
+                    Poly(out.pt[:, i], EVAL, params) if known[i] else None)
+        for i, m in enumerate(pks)
     ]
+
+
+def scalar_rows(params, scalars, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """[L, U, n] EVAL data of the distinct gate scalars (coefficient lists)
+    and each gate's index into it: the slots of a vec gate, or a constant
+    used twice, share one."""
+    made: dict = {}
+    inv = [made.setdefault(tuple(s), len(made)) for s in scalars]
+    data = stack_rows(params, [scalar_poly(params, list(s), device) for s in made])
+    return data, torch.tensor(inv, dtype=torch.int64, device=device)
+
+
+def _matmul(left: torch.Tensor, dec: torch.Tensor, q) -> torch.Tensor:
+    """left[:, b] @ dec[b]: [L, B, r, k, n] and [B, L, k, c, n] to [L, B, r, c, n]."""
+    return zq_matmul(left.transpose(0, 1), dec, q).transpose(0, 1)
+
+
+def gate_rows(params, kind, a: Rows, b: Rows | None = None, scalars=None) -> Rows:
+    """B gates of one batchable kind over their operand rows: `b` for Add,
+    Sub and Mul, `scalars` (from `scalar_rows`) for SmallScalarMul and
+    LargeScalarMul. Mul reads the left operands' plaintexts, which must be
+    known."""
+    q = params.tables(a.pk.device).moduli
+    enc = a.vec is not None
+    if kind in (ADD, SUB):
+        ew = ew_add if kind == ADD else ew_sub
+        if not enc:
+            return Rows(ew(a.pk, b.pk, q))
+        return Rows(ew(a.pk, b.pk, q), ew(a.vec, b.vec, q), ew(a.pt, b.pt, q))
+    if kind == MUL:
+        # out = a @ G^{-1}(A_b), and over encodings + x_a * b.vector
+        dec = decompose_rows(params, b.pk)  # [B, L, m, c, n]
+        pk = _matmul(a.pk, dec, q)
+        if not enc:
+            return Rows(pk)
+        second = ew_mul(b.vec, a.pt[:, :, None, None, :], q)
+        return Rows(pk, ew_add(_matmul(a.vec, dec, q), second, q), ew_mul(a.pt, b.pt, q))
+    s_data, inv = scalars
+    s = s_data.index_select(1, inv)  # [L, B, n]
+    if kind == SMALL_SCALAR_MUL:
+        # elementwise by the gate's scalar poly
+        out = [ew_mul(x, s[:, :, None, None, :], q) for x in (a.pk, a.vec) if x is not None]
+    else:
+        # LargeScalarMul: w @ G^{-1}(c G), each distinct c decomposed once
+        g_data = PolyMatrix.gadget_matrix(params, a.pk.shape[2], a.pk.device).data
+        sg = ew_mul(g_data[:, None], s_data[:, :, None, None, :], q)  # [L, U, d, m, n]
+        dec = decompose_rows(params, sg).index_select(0, inv)  # [B, L, d*k, m, n]
+        out = [_matmul(x, dec, q) for x in (a.pk, a.vec) if x is not None]
+    if enc:
+        out.append(ew_mul(a.pt, s, q))
+    return Rows(*out)
+
+
+def _exec(params, kind, gates, wires, resolve) -> list:
+    """A batch of gates of one kind over the wire map, through `gate_rows`."""
+    a, reveal, known = rows_of(params, [wires[g.inputs[0]] for g in gates])
+    b = scalars = None
+    if kind in (ADD, SUB, MUL):
+        b, reveal_b, known_b = rows_of(params, [wires[g.inputs[1]] for g in gates])
+        reveal, known = reveal & reveal_b, known & known_b
+    else:
+        scalars = scalar_rows(params, [resolve(g) for g in gates], a.pk.device)
+    return wires_of(params, gate_rows(params, kind, a, b, scalars), reveal, known)
 
 
 def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
@@ -451,12 +383,19 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
     the budget spill to host compact bytes (pass `wire_store_out=[]` to
     receive the WireStore for peak/spill introspection)."""
     assert len(inputs) == circuit.num_input
-    uses = circuit.use_counts()
     budget = (
         live_bytes_budget
         if live_bytes_budget is not None
         else config.circuit_live_bytes_budget()
     )
+    if not budget and wire_store_out is None:
+        # a uniform BGG+ circuit over one arena of wires (arena_eval.py)
+        from .arena_eval import eval_arena
+
+        out = eval_arena(circuit, params, one, inputs, plt_evaluator, param_bindings)
+        if out is not None:
+            return out
+    uses = circuit.use_counts()
     wires = WireStore(params, budget)
     if wire_store_out is not None:
         wire_store_out.append(wires)
@@ -500,13 +439,7 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
     plt_batch = getattr(plt_evaluator, "public_lookup_batch", None)
 
     def exec_group(kind, gates, wire_map):
-        if kind in (ADD, SUB):
-            return _exec_add_sub(params, gates, wire_map)
-        if kind == SMALL_SCALAR_MUL:
-            return _exec_scalar_mul(params, gates, wire_map, resolve)
-        if kind == LARGE_SCALAR_MUL:
-            return _exec_large_scalar_mul(params, gates, wire_map, resolve)
-        return _exec_mul(params, gates, wire_map)
+        return _exec(params, kind, gates, wire_map, resolve)
 
     for level in circuit.compute_levels():
         # group batchable gates by signature

@@ -47,6 +47,8 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass, field
 
+import torch
+
 from ..bgg import BggEncoding, BggPublicKey
 from ..circuit import PolyCircuit
 from ..bgg.lift import lift_constants_batched
@@ -57,9 +59,11 @@ from ..gadgets.fhe.ring_gsw import (
     native_encrypt,
 )
 from ..gadgets.fhe_prg.goldreich import GoldreichFhePrg
-from ..matrix import PolyMatrix
+from ..matrix import PolyMatrix, rows
 from ..noise_refresh.naive_vec import NoiseRefresherNaiveVec, RefreshMaterialCts
 from ..sampler import FinRingDist, HashSampler
+from ..ops.elementwise import ew_add, ew_sub
+from ..ring.poly import COEFF
 from ..utils.tracing import span
 
 
@@ -142,27 +146,35 @@ class PrfMaskPipeline:
             + round_idx.to_bytes(8, "little")
         ).digest()
 
-    def _branch_mask_matrix(self, round_idx: int, branch: int, wire_idx: int,
-                            target_cols: int) -> PolyMatrix:
-        tag = (
+    @staticmethod
+    def _mask_tag(round_idx: int, branch: int, wire_idx: int) -> bytes:
+        return (
             b"DiamondIOPrfBranchMask/v1"
             + round_idx.to_bytes(8, "little")
             + branch.to_bytes(8, "little")
             + wire_idx.to_bytes(8, "little")
         )
-        return self._hash.sample_hash(
-            self.params, self.hash_key, tag, self.d, target_cols, FinRingDist()
-        )
 
-    def _common_rebase_pk(self, round_idx: int, wire_idx: int,
-                          target_cols: int) -> PolyMatrix:
-        tag = (
+    @staticmethod
+    def _common_tag(round_idx: int, wire_idx: int) -> bytes:
+        return (
             b"DiamondIOPrfCommonRebase/v1"
             + round_idx.to_bytes(8, "little")
             + wire_idx.to_bytes(8, "little")
         )
+
+    def _branch_mask_matrix(self, round_idx: int, branch: int, wire_idx: int,
+                            target_cols: int) -> PolyMatrix:
         return self._hash.sample_hash(
-            self.params, self.hash_key, tag, self.d, target_cols, FinRingDist()
+            self.params, self.hash_key, self._mask_tag(round_idx, branch, wire_idx),
+            self.d, target_cols, FinRingDist(),
+        )
+
+    def _common_rebase_pk(self, round_idx: int, wire_idx: int,
+                          target_cols: int) -> PolyMatrix:
+        return self._hash.sample_hash(
+            self.params, self.hash_key, self._common_tag(round_idx, wire_idx),
+            self.d, target_cols, FinRingDist(),
         )
 
     def refresh_id(self, round_idx: int, wire_idx: int) -> bytes:
@@ -371,6 +383,46 @@ class PrfMaskPipeline:
             ])
         return RefreshMaterialCts(errors=errors, masks=masks)
 
+    # ------------------------------------------------ per-wire stacks
+
+    def _hash_rows(self, tags: list[bytes], ncol: int) -> torch.Tensor:
+        """d x ncol hash matrices of many tags: an EVAL stack (`sample_hash`
+        of each)."""
+        return self._hash.sample_hash_stacked(
+            self.params, self.hash_key, tags, self.d, ncol, FinRingDist(), eval_form=True
+        )
+
+    def _rebase_targets(self, round_idx: int, branch: int, wires: list, branch_sub):
+        """The common rebase public keys (a stack) and every wire's rebase
+        target [A_common - A_masked; 0], A_masked = A_prg + branch_sub
+        G^{-1}(mask): `_branch_mask_matrix` and `_common_rebase_pk` of each
+        wire, drawn as one batch."""
+        params = self.params
+        cols = wires[0].matrix.ncol
+        masks = self._hash_rows(
+            [self._mask_tag(round_idx, branch, w) for w in range(len(wires))], cols)
+        commons = self._hash_rows(
+            [self._common_tag(round_idx, w) for w in range(len(wires))], cols)
+        q = params.tables(self.device).moduli
+        masked = ew_add(rows.stack(params, [w.matrix for w in wires]),
+                        rows.left_mul_decompose(params, branch_sub.matrix, masks), q)
+        diff = ew_sub(commons, masked, q)
+        return commons, rows.unstack(params, torch.cat([diff, torch.zeros_like(diff)], dim=2))
+
+    def _on_host(self, pres: list) -> list:
+        """Host copies of one call's preimages (one shape, one form) in one
+        device-to-host copy, where one per matrix would synchronize the card
+        per written file; the same values and form, so the same file bytes."""
+        host = torch.stack([m.data for m in pres], dim=1).cpu()
+        return rows.unstack(self.params, host, pres[0].fmt)
+
+    def _preimages(self, td0, b0, targets: list) -> list:
+        with span("prf_pipeline.preimages", targets=len(targets),
+                  cols=sum(t.ncol for t in targets)):
+            return self.trap.preimage_batched_chunked(
+                self.params, td0, b0, targets, mesh=self.mesh
+            )
+
     # ------------------------------------------------------------- offline
 
     def compute_public_key_path(self, write_matrix, preprocess_out, one_pk,
@@ -432,34 +484,23 @@ class PrfMaskPipeline:
                 # computationally unreachable)
                 round_material = []
                 next_seed_wires = None
+                first_a_prime = None
                 for branch in range(self.branch_count):
                     branch_sub = selector_pk - one_pk.small_scalar_mul(
                         params, [branch]
                     )
-                    # per-wire rebase targets, batched into one preimage pass
-                    commons = []
-                    rebase_targets = []
-                    for wire_idx in range(limit):
-                        prg_wire = prg_wires[branch][wire_idx]
-                        cols = prg_wire.matrix.ncol
-                        mask = self._branch_mask_matrix(
-                            round_idx, branch, wire_idx, cols
+                    # every wire's rebase target, as one stack, into one
+                    # preimage pass
+                    with span("prf_pipeline.rebase_targets", wires=limit):
+                        commons, rebase_targets = self._rebase_targets(
+                            round_idx, branch, prg_wires[branch][:limit], branch_sub
                         )
-                        masked = prg_wire + branch_sub.matrix_mul(params, mask)
-                        common = self._common_rebase_pk(round_idx, wire_idx, cols)
-                        commons.append(common)
-                        rebase_targets.append(
-                            (common - masked.matrix).concat_rows(
-                                [PolyMatrix.zero(params, self.d, cols, device=self.device)]
+                    rebase_pres = self._preimages(td0, b0, rebase_targets)
+                    with span("prf_pipeline.writes", files=limit):
+                        for wire_idx, pre in enumerate(self._on_host(rebase_pres)):
+                            write_matrix(
+                                self.rebase_preimage_id(round_idx, branch, wire_idx), pre
                             )
-                        )
-                    rebase_pres = self.trap.preimage_batched_chunked(
-                        params, td0, b0, rebase_targets, mesh=self.mesh
-                    )
-                    for wire_idx, pre in enumerate(rebase_pres):
-                        write_matrix(
-                            self.rebase_preimage_id(round_idx, branch, wire_idx), pre
-                        )
                     # shared refresh terms for this (round, branch)
                     refresh_ctx = f"refresh.r{round_idx}.b{branch}"
                     if cfg.debug_encrypt_random_prg_wires:
@@ -476,44 +517,34 @@ class PrfMaskPipeline:
                             cfg.noise_refresh_cbd_n, plt_evaluator,
                             lambda w: w.matrix, context=refresh_ctx,
                         )
-                    branch_next = []
-                    refresh_targets = []
-                    refresh_ids = []
-                    for wire_idx in range(limit):
-                        a_prime_pk, refresh_keys = self.refresher.preprocess_from_decoded(
-                            self.refresh_id(round_idx, wire_idx),
-                            one_pk,
-                            BggPublicKey(commons[wire_idx], True),
-                            terms,
+                    with span("prf_pipeline.refresh_targets", wires=limit):
+                        a_prime, keys = self.refresher.preprocess_from_decoded_rows(
+                            [self.refresh_id(round_idx, w) for w in range(limit)],
+                            one_pk, commons, terms,
                         )
-                        for crt_idx, t in enumerate(refresh_keys):
-                            refresh_targets.append(
-                                t.concat_rows(
-                                    [PolyMatrix.zero(params, self.d, t.ncol,
-                                                     device=self.device)]
-                                )
-                            )
-                            refresh_ids.append(
-                                self.refresh_preimage_id(
-                                    round_idx, branch, wire_idx, crt_idx
-                                )
-                            )
-                        branch_next.append(a_prime_pk)
-                    for mid, pre in zip(
-                        refresh_ids,
-                        self.trap.preimage_batched_chunked(
-                            params, td0, b0, refresh_targets, mesh=self.mesh
-                        ),
-                    ):
-                        write_matrix(mid, pre)
+                        zero = torch.zeros_like(keys[0])
+                        # wire-major, CRT level within a wire
+                        refresh_targets = rows.unstack(params, torch.stack(
+                            [torch.cat([t, zero], dim=2) for t in keys], dim=2
+                        ).flatten(1, 2))
+                    refresh_ids = [
+                        self.refresh_preimage_id(round_idx, branch, wire_idx, crt_idx)
+                        for wire_idx in range(limit) for crt_idx in range(len(keys))
+                    ]
+                    refresh_pres = self._preimages(td0, b0, refresh_targets)
+                    with span("prf_pipeline.writes", files=len(refresh_ids)):
+                        for mid, pre in zip(refresh_ids, self._on_host(refresh_pres)):
+                            write_matrix(mid, pre)
                     if next_seed_wires is None:
-                        next_seed_wires = branch_next
+                        first_a_prime = a_prime
+                        next_seed_wires = [
+                            BggPublicKey(m, True) for m in rows.unstack(params, a_prime)
+                        ]
                     else:
                         # A' is hash-derived from (round, wire): branch-independent
-                        assert all(
-                            a.matrix == b.matrix
-                            for a, b in zip(next_seed_wires, branch_next)
-                        ), "refresh must not depend on the branch"
+                        assert torch.equal(first_a_prime, a_prime), (
+                            "refresh must not depend on the branch"
+                        )
                 debug.refresh_material.append(round_material)
                 seed_wires = next_seed_wires
 
@@ -565,7 +596,8 @@ class PrfMaskPipeline:
         build_goldreich_prg_range_circuit, utils.rs:747 / eval-side range)."""
         from ..lookup.lwe import set_plt_context
 
-        circuit = self.build_prg_round_circuit(round_idx, only_branch)
+        with span("prf_pipeline.prg_round_build", round_idx=round_idx):
+            circuit = self.build_prg_round_circuit(round_idx, only_branch)
         rng_tag = "full" if only_branch is None else f"b{only_branch}"
         set_plt_context(plt_evaluator, f"prg.r{round_idx}.{rng_tag}")
         with span("prf_pipeline.prg_round_circuit", gates=circuit.num_gates(),
@@ -643,35 +675,44 @@ class PrfMaskPipeline:
                         cfg.noise_refresh_cbd_n, plt_evaluator,
                         lambda w: w.vector, context=refresh_ctx,
                     )
-                next_wires = []
-                for wire_idx in range(limit):
-                    prg_wire = flat_wires[wire_idx]
-                    cols = prg_wire.vector.ncol
-                    mask = self._branch_mask_matrix(round_idx, branch, wire_idx, cols)
-                    masked = prg_wire + branch_sub.matrix_mul(params, mask)
-                    common = self._common_rebase_pk(round_idx, wire_idx, cols)
-                    pre = read_matrix(
-                        self.rebase_preimage_id(round_idx, branch, wire_idx)
+                wires = flat_wires[:limit]
+                q = params.tables(self.device).moduli
+                with span("prf_pipeline.rebase_online", wires=limit):
+                    cols = wires[0].vector.ncol
+                    masks = self._hash_rows(
+                        [self._mask_tag(round_idx, branch, w) for w in range(limit)], cols)
+                    masked = ew_add(
+                        rows.stack(params, [w.vector for w in wires]),
+                        rows.left_mul_decompose(params, branch_sub.vector, masks), q,
                     )
-                    rebased = BggEncoding(
-                        state0 @ pre + masked.vector,
-                        BggPublicKey(common, True),
-                        prg_wire.plaintext,
-                    )
-                    decoders = [
-                        state0 @ read_matrix(
-                            self.refresh_preimage_id(
-                                round_idx, branch, wire_idx, crt_idx
-                            )
-                        )
+                with span("prf_pipeline.reads", files=limit * (1 + params.crt_depth)):
+                    pres = [
+                        read_matrix(self.rebase_preimage_id(round_idx, branch, w))
+                        for w in range(limit)
+                    ]
+                    dec_pres = [
+                        [read_matrix(self.refresh_preimage_id(round_idx, branch, w, crt_idx))
+                         for w in range(limit)]
                         for crt_idx in range(params.crt_depth)
                     ]
-                    next_wires.append(
-                        self.refresher.online_eval_from_decoded(
-                            self.refresh_id(round_idx, wire_idx),
-                            one_enc, rebased, terms, decoders,
-                        )
+                with span("prf_pipeline.refresh_online", wires=limit):
+                    rebased = ew_add(
+                        rows.matmul_left(params, state0, rows.stack(params, pres).transpose(0, 1)),
+                        masked, q,
                     )
+                    decoders = [
+                        rows.matmul_left(params, state0, rows.stack(params, p).transpose(0, 1))
+                        for p in dec_pres
+                    ]
+                    a_prime, vecs = self.refresher.online_eval_from_decoded_rows(
+                        [self.refresh_id(round_idx, w) for w in range(limit)],
+                        one_enc, rebased, terms, decoders,
+                    )
+                next_wires = [
+                    BggEncoding(v, BggPublicKey(a, True), w.plaintext)
+                    for v, a, w in zip(rows.unstack(params, vecs, COEFF),
+                                       rows.unstack(params, a_prime), wires)
+                ]
                 seed_wires = next_wires
 
         return seed_wires

@@ -12,8 +12,9 @@ directly from the (test-held) BGG secret:
   lookup error.
 
 Both have a `public_lookup_batch`, so the level-batched evaluator takes a
-level's PubLut gates as one batch. NEVER use outside tests: they require the
-secret.
+level's PubLut gates as one batch, and a `public_lookup_rows`, the same over
+stacked rows for the arena evaluator (`circuit/arena_eval.py`). NEVER use
+outside tests: they require the secret.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ from ..ops.elementwise import ew_mul, ew_sub
 from ..ops.zq_matmul import zq_matmul
 from ..ring.poly import EVAL, Poly, residue_planes_from_ints
 from ..sampler import Trapdoor
-from .lwe import derive_a_lt_matrices_batch, derive_a_lt_matrix
-from .public_lut import lut_input_values
+from .lwe import derive_a_lt_matrices_batch, derive_a_lt_matrix, derive_a_lt_stacked
+from .public_lut import const_values, lut_input_values
 
 
 def debug_trapdoor_preimage(params, trapdoor: Trapdoor, target: PolyMatrix) -> PolyMatrix:
@@ -84,6 +85,12 @@ class DebugBGGPubKeyPltEvaluator:
                                            slot_idxs=slot_idxs)
         return [BggPublicKey(a, True) for a in a_lts]
 
+    def public_lookup_rows(self, params, luts, gate_ids, lut_ids, in_pk, in_pt):
+        """`public_lookup_batch` over stacked input rows [L, B, d, m, n]:
+        (A_LT rows, None, None)."""
+        return derive_a_lt_stacked(params, in_pk.shape[2], self.hash_key, gate_ids,
+                                   device=in_pk.device), None, None
+
     def sample_aux_matrices(self, params):
         pass
 
@@ -111,6 +118,40 @@ class DebugBGGEncodingPltEvaluator:
         self.hash_key = hash_key
         self.secret_vec = secret_vec
 
+    def _lookup(self, params, luts, gate_ids, lut_ids, zs, d, slot_idxs=None):
+        """B lookups of the inputs' constants zs: (A_LT [L, B, d, m, n],
+        s (A_LT - y G) [L, B, 1, m, n], y residues [L, B]). Each (table, z)
+        is looked up once per evaluator."""
+        memo = self.__dict__.setdefault("_y_memo", {})
+        ys = []
+        for plt, gate_id, lut_id, z in zip(luts, gate_ids, lut_ids, zs):
+            key = (id(plt), z)
+            y = memo.get(key)
+            if y is None:
+                got = plt.get(params, z)
+                if got is None:
+                    raise KeyError(f"{z} not found in LUT {lut_id} for gate {gate_id}")
+                y = memo[key] = (plt, int(got[1].value))  # the table kept: its id stays
+            ys.append(y[1])
+        device = self.secret_vec.data.device
+        y_res = torch.from_numpy(residue_planes_from_ints(params, ys).astype("int64")).to(device)
+        a_lt = derive_a_lt_stacked(params, d, self.hash_key, gate_ids, device=device,
+                                   slot_idxs=slot_idxs)
+        L, B, _, m, n = a_lt.shape
+        vec = _lut_enc_vectors(
+            a_lt.reshape(L, B * d, m, n), y_res, self.secret_vec.to_eval().data,
+            PolyMatrix.gadget_matrix(params, d, device).data, params.tables(device).moduli,
+        )  # [B, L, 1, m, n]
+        return a_lt, vec.transpose(0, 1), y_res
+
+    def public_lookup_rows(self, params, luts, gate_ids, lut_ids, in_pk, in_pt):
+        """`public_lookup_batch` over stacked input rows (public keys
+        [L, B, d, m, n], plaintexts [L, B, n]): (A_LT rows, s (A_LT - y G)
+        rows [L, B, 1, m, n], y rows [L, B, n])."""
+        zs = const_values(params, in_pt[:, :, 0])
+        a_lt, vec, y_res = self._lookup(params, luts, gate_ids, lut_ids, zs, in_pk.shape[2])
+        return a_lt, vec, y_res[:, :, None].expand(-1, -1, params.n)
+
     def public_lookup(self, params, plt, one, input_enc: BggEncoding,
                       gate_id: int, lut_id: int, slot_idx=None) -> BggEncoding:
         if input_enc.plaintext is None:
@@ -129,32 +170,17 @@ class DebugBGGEncodingPltEvaluator:
 
     def public_lookup_batch(self, params, items, slot_idxs=None) -> list[BggEncoding]:
         """items = [(plt, input_enc, gate_id, lut_id)], `slot_idxs` one slot
-        per item or None: one read of the inputs' constants, one A_LT batch,
-        one batched G*y subtraction and secret-row product; equal to per-gate
-        `public_lookup`. The outputs are views of the batch's result on the
-        device."""
-        device = self.secret_vec.data.device
-        d = items[0][1].pubkey.matrix.nrow
+        per item or None: `public_lookup_rows`' lookups, one output per
+        item; equal to per-gate `public_lookup`. The outputs are views of the
+        batch's result on the device."""
         zs = lut_input_values(params, [it[1].plaintext for it in items])
-        y_vals = []
-        for (plt, _input_enc, gate_id, lut_id), z in zip(items, zs):
-            got = plt.get(params, z)
-            if got is None:
-                raise KeyError(f"{z} not found in LUT {lut_id} for gate {gate_id}")
-            y_vals.append(int(got[1].value))
-        y_res = torch.from_numpy(residue_planes_from_ints(params, y_vals).astype("int64"))
-        y_res = y_res.to(device)  # [L, B]
-        L, B = y_res.shape
-        ys = [Poly(y_res[:, i : i + 1].expand(L, params.n).contiguous(), EVAL, params)
-              for i in range(B)]
-        a_lts = derive_a_lt_matrices_batch(params, d, self.hash_key, [it[2] for it in items],
-                                           device=device, slot_idxs=slot_idxs)
-        a_data = torch.cat([a.data for a in a_lts], dim=1)  # [L, B*d, m, n]
-        vec = _lut_enc_vectors(
-            a_data, y_res, self.secret_vec.to_eval().data,
-            PolyMatrix.gadget_matrix(params, d, device).data, params.tables(device).moduli,
-        )  # [B, L, 1, m, n]
+        a_lt, vec, y_res = self._lookup(
+            params, [it[0] for it in items], [it[2] for it in items], [it[3] for it in items],
+            zs, items[0][1].pubkey.matrix.nrow, slot_idxs)
+        n = params.n
         return [
-            BggEncoding(PolyMatrix(vec[i], EVAL, params), BggPublicKey(a_lts[i], True), ys[i])
-            for i in range(B)
+            BggEncoding(PolyMatrix(vec[:, i], EVAL, params),
+                        BggPublicKey(PolyMatrix(a_lt[:, i], EVAL, params), True),
+                        Poly(y_res[:, i : i + 1].expand(-1, n).contiguous(), EVAL, params))
+            for i in range(len(items))
         ]

@@ -54,10 +54,10 @@ import torch
 from .. import config
 from ..bgg import BggEncoding, BggPublicKey
 from ..bgg.poly_encoding import BggPolyEncoding
-from ..circuit.batched_eval import _batched_decompose
 from ..matrix import PolyMatrix
+from ..matrix.rows import decompose as decompose_rows
 from ..ops.zq_matmul import zq_matmul
-from ..ring.poly import EVAL, Poly
+from ..ring.poly import COEFF, EVAL, Poly
 from ..sampler import (
     FinRingDist,
     GaussDist,
@@ -276,8 +276,9 @@ class GGH15BGGPubKeyPltEvaluator:
         chunk = max(1, (128 << 20) // (L * m_g * m_g * n))
         for start in range(0, len(rows), chunk):
             ks = rows[start : start + chunk]
-            v_raw = self._hash_mats(params, [_v_tag(lut_id, k) for k in ks])
-            dec = _batched_decompose(params, v_raw)  # [E, L, m_g, m_g, n]
+            v_raw = torch.stack([m.data for m in self._hash_mats(
+                params, [_v_tag(lut_id, k) for k in ks])], dim=1)
+            dec = decompose_rows(params, v_raw, COEFF)  # [E, L, m_g, m_g, n]
             E = len(ks)
             lhs = w_pair[:, None].expand(2, E, L, d, m_g, n)
             prod = zq_matmul(lhs, dec[None].expand(2, E, L, m_g, m_g, n), q)

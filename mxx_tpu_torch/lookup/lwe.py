@@ -40,12 +40,13 @@ import torch
 
 from .. import config
 from ..bgg import BggEncoding, BggPublicKey
-from ..circuit.batched_eval import _batched_decompose
 from ..matrix import PolyMatrix
 from ..matrix.offload import offload_matrix
+from ..matrix.rows import decompose as decompose_rows
+from ..matrix.rows import unstack as unstack_rows
 from ..ops.elementwise import ew_mul, ew_sub
 from ..ops.zq_matmul import zq_matmul
-from ..ring.poly import EVAL, Poly, residue_planes_from_ints
+from ..ring.poly import COEFF, EVAL, Poly, residue_planes_from_ints
 from ..sampler import FinRingDist, HashSampler, Trapdoor, TrapdoorSampler
 from ..storage import add_lookup_buffer, get_lookup_buffer_stacked, read_matrix_from_multi_batch
 from ..utils.tracing import span
@@ -81,34 +82,52 @@ _A_LT_CACHE_BYTES = [0]
 _A_LT_CACHE_LIMIT = 1 << 28  # 256 MB of device tensors; FIFO-evicted
 
 
-def derive_a_lt_matrices_batch(params, row_size: int, hash_key: bytes, gate_ids: list[int],
-                               slot_idx=None, context: str = "",
-                               device="cuda", slot_idxs: list | None = None) -> list[PolyMatrix]:
-    """Many gates' A_LT (EVAL form) in one batch of hash lanes and one
-    transform, equal per gate to `derive_a_lt_matrix` (same tags and
-    streams); `slot_idxs` gives each gate its own slot (vec wires). Results
-    are kept in a bounded FIFO cache, since a protocol derives the same
-    hash-determined A_LT once per pass; nothing writes into a cached
-    tensor."""
+def _a_lt_entry(params, row_size, hash_key, gate_ids, slot_idx, context, device, slot_idxs):
+    """The cache entry [A_LT stack, bytes, per-gate views or None] of a
+    batch of gates, derived on a miss."""
     device = torch.device(device)
     slots = [s or 0 for s in slot_idxs] if slot_idxs is not None else [slot_idx or 0] * len(gate_ids)
     ck = (params.n, params.crt_depth, params.crt_bits, params.base_bits, row_size, hash_key,
           tuple(slots), context, tuple(gate_ids), str(device))
     hit = _A_LT_CACHE.get(ck)
     if hit is not None:
-        return list(hit[0])
+        return hit
     m_g = row_size * params.modulus_digits
     tags = [f"A_LT_{_ctx_tag(context)}{g}_slot{s}" for g, s in zip(gate_ids, slots)]
-    out = HashSampler(device).sample_hash_batch(params, hash_key, tags, row_size, m_g,
-                                                FinRingDist(), eval_form=True)
-    nbytes = sum(m.data.numel() * m.data.element_size() for m in out)
-    if nbytes <= _A_LT_CACHE_LIMIT:
-        while _A_LT_CACHE and _A_LT_CACHE_BYTES[0] + nbytes > _A_LT_CACHE_LIMIT:
-            _, old_bytes = _A_LT_CACHE.pop(next(iter(_A_LT_CACHE)))
-            _A_LT_CACHE_BYTES[0] -= old_bytes
-        _A_LT_CACHE[ck] = (out, nbytes)
-        _A_LT_CACHE_BYTES[0] += nbytes
-    return list(out)
+    out = HashSampler(device).sample_hash_stacked(params, hash_key, tags, row_size, m_g,
+                                                  FinRingDist(), eval_form=True)
+    entry = [out, out.numel() * out.element_size(), None]
+    if entry[1] <= _A_LT_CACHE_LIMIT:
+        while _A_LT_CACHE and _A_LT_CACHE_BYTES[0] + entry[1] > _A_LT_CACHE_LIMIT:
+            _A_LT_CACHE_BYTES[0] -= _A_LT_CACHE.pop(next(iter(_A_LT_CACHE)))[1]
+        _A_LT_CACHE[ck] = entry
+        _A_LT_CACHE_BYTES[0] += entry[1]
+    return entry
+
+
+def derive_a_lt_stacked(params, row_size: int, hash_key: bytes, gate_ids: list[int],
+                        slot_idx=None, context: str = "", device="cuda",
+                        slot_idxs: list | None = None) -> torch.Tensor:
+    """Many gates' A_LT as one [L, B, row_size, m, n] EVAL tensor, from one
+    batch of hash lanes and one transform, equal per gate to
+    `derive_a_lt_matrix` (same tags and streams); `slot_idxs` gives each gate
+    its own slot (vec wires). Results are kept in a bounded FIFO cache,
+    since a protocol derives the same hash-determined A_LT once per pass;
+    nothing writes into a cached tensor."""
+    return _a_lt_entry(params, row_size, hash_key, gate_ids, slot_idx, context, device,
+                       slot_idxs)[0]
+
+
+def derive_a_lt_matrices_batch(params, row_size: int, hash_key: bytes, gate_ids: list[int],
+                               slot_idx=None, context: str = "",
+                               device="cuda", slot_idxs: list | None = None) -> list[PolyMatrix]:
+    """`derive_a_lt_stacked` as one EVAL matrix per gate (views, made once
+    per cache entry)."""
+    entry = _a_lt_entry(params, row_size, hash_key, gate_ids, slot_idx, context, device,
+                        slot_idxs)
+    if entry[2] is None:
+        entry[2] = unstack_rows(params, entry[0])
+    return list(entry[2])
 
 
 def _k_low_tag(gate_id: int, lut_id: int, lut_entry_idx: int, slot_idx=None,
@@ -137,9 +156,9 @@ def derive_k_lows_batch(params, row_size: int, hash_key: bytes, tags: list[str],
     decomposition: [E, L, m_g, m_g, n] in EVAL form, equal per tag to
     `derive_k_low`."""
     m_g = row_size * params.modulus_digits
-    raw = HashSampler(device).sample_hash_batch(params, hash_key, tags, row_size, m_g,
-                                                FinRingDist())
-    return _batched_decompose(params, raw)
+    raw = HashSampler(device).sample_hash_stacked(params, hash_key, tags, row_size, m_g,
+                                                  FinRingDist())
+    return decompose_rows(params, raw, COEFF)
 
 
 def k_high_checkpoint_prefix(gate_id: int, lut_id: int, slot_idx=None, context: str = "") -> str:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..ring.element import FinRingElem
@@ -61,5 +62,14 @@ def lut_input_values(params: RingParams, polys) -> list[int]:
     ONE device-to-host copy: column 0 of each, stacked."""
     if any(p is None for p in polys):
         raise ValueError("LUT input must reveal its plaintext")
-    cols = torch.stack([p.data[:, 0] for p in polys]).cpu().numpy()  # [B, L]
-    return [int(params.reconstruct_coeff(c)) for c in cols]
+    return const_values(params, torch.stack([p.data[:, 0] for p in polys], dim=1))
+
+
+def const_values(params: RingParams, cols: torch.Tensor) -> list[int]:
+    """The constant values of B constant plaintexts from column 0 of their
+    residues, [L, B] (either form: a constant's evaluations all equal it),
+    with one device-to-host copy; each distinct column is reconstructed
+    once."""
+    uniq, inv = np.unique(cols.T.cpu().numpy(), axis=0, return_inverse=True)
+    vals = [int(params.reconstruct_coeff(c)) for c in uniq]
+    return [vals[i] for i in inv.reshape(-1)]

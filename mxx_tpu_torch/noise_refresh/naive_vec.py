@@ -56,7 +56,9 @@ from ..circuit import PolyCircuit
 from ..bgg.lift import lift_constants_batched
 from ..gadgets.arith.nested_rns import encode_nested_rns_value
 from ..gadgets.fhe.ring_gsw import RingGswCiphertext
-from ..matrix import PolyMatrix
+from ..matrix import PolyMatrix, rows
+from ..ops.elementwise import ew_add, ew_sub
+from ..ring.poly import COEFF
 from ..sampler import FinRingDist, HashSampler
 from ..utils.tracing import span
 from .circuit_decrypt import (
@@ -162,11 +164,7 @@ class NoiseRefresherNaiveVec:
     # ------------------------------------------------------------- helpers
 
     def _a_prime(self, refresh_id: bytes) -> PolyMatrix:
-        m_g = self.d * self.params.modulus_digits
-        return self._hash.sample_hash(
-            self.params, self.hash_key,
-            b"nr_a_prime:" + refresh_id, self.d, m_g, FinRingDist(),
-        )
+        return rows.unstack(self.params, self.a_prime_rows([refresh_id]))[0]
 
     def material_wire_values(self, material: RefreshMaterialCts) -> list[list[int]]:
         """Flatten native material cts to per-digit constant wire values for
@@ -270,6 +268,39 @@ class NoiseRefresherNaiveVec:
         key wire, and outputs decoded[digit][crt] — evaluated over the caller's
         BGG wires with NO host randomness (reference material_circuit,
         naive_vec.rs:1780-1936 + preprocess_many:1009-1040)."""
+        params = self.params
+        ctx = self.ring_gsw
+        probe = RingGswCiphertext.input(ctx, ctx.fresh_circuit())
+        wpc = len(probe.flatten())
+        assert len(seed_ct_wires) % wpc == 0, (len(seed_ct_wires), wpc)
+        seed_bits = len(seed_ct_wires) // wpc
+        with span("noise_refresh.prg_material_build"):
+            circuit = self._prg_material_circuit(graph_seed, seed_bits, cbd_n)
+        crt_depth = params.crt_depth
+        digits = params.modulus_digits
+        from ..lookup.lwe import set_plt_context
+
+        set_plt_context(plt_evaluator, f"{context}.prg_material")
+        with span("noise_refresh.prg_material_circuit", gates=circuit.num_gates()):
+            results = circuit.eval(
+                params, one_wire, list(seed_ct_wires) + [k_wire],
+                plt_evaluator=plt_evaluator,
+                slot_transfer_evaluator=slot_transfer_evaluator,
+                batched=True,
+            )
+        set_plt_context(plt_evaluator, context)
+        decoded = [
+            results[d * crt_depth : (d + 1) * crt_depth] for d in range(digits)
+        ]
+        return [
+            self._term_matrix(decoded, crt_idx, extract)
+            for crt_idx in range(crt_depth)
+        ]
+
+    def _prg_material_circuit(self, graph_seed: bytes, seed_bits: int, cbd_n: int
+                              ) -> PolyCircuit:
+        """The real-mode material circuit of `decoded_terms_prg`: inputs the
+        seed ciphertexts' wires and the key wire, outputs decoded[digit][crt]."""
         from .circuit_prg import build_ranged_prg_material_digit
         from .circuit_decrypt import (
             decrypt_centered_bit_decomposed_polynomial as _dec_mask,
@@ -279,10 +310,6 @@ class NoiseRefresherNaiveVec:
         params = self.params
         ctx = self.ring_gsw
         circuit = ctx.fresh_circuit()
-        probe = RingGswCiphertext.input(ctx, ctx.fresh_circuit())
-        wpc = len(probe.flatten())
-        assert len(seed_ct_wires) % wpc == 0, (len(seed_ct_wires), wpc)
-        seed_bits = len(seed_ct_wires) // wpc
         # canonical=False: the seed wires are round outputs / refreshed wires
         seeds = [
             RingGswCiphertext.input(ctx, circuit, canonical=False)
@@ -303,24 +330,7 @@ class NoiseRefresherNaiveVec:
                 dec_mask = _dec_mask(circuit, masks_by_crt[crt_idx], key, mask_moduli)
                 outputs.append(circuit.add_gate(dec_err, dec_mask))
         circuit.output(outputs)
-        from ..lookup.lwe import set_plt_context
-
-        set_plt_context(plt_evaluator, f"{context}.prg_material")
-        with span("noise_refresh.prg_material_circuit", gates=circuit.num_gates()):
-            results = circuit.eval(
-                params, one_wire, list(seed_ct_wires) + [k_wire],
-                plt_evaluator=plt_evaluator,
-                slot_transfer_evaluator=slot_transfer_evaluator,
-                batched=True,
-            )
-        set_plt_context(plt_evaluator, context)
-        decoded = [
-            results[d * crt_depth : (d + 1) * crt_depth] for d in range(digits)
-        ]
-        return [
-            self._term_matrix(decoded, crt_idx, extract)
-            for crt_idx in range(crt_depth)
-        ]
+        return circuit
 
     # ---------------------------------------- packed-payload refresh terms
 
@@ -484,21 +494,41 @@ class NoiseRefresherNaiveVec:
                                 input_pk: BggPublicKey,
                                 terms: list[PolyMatrix]):
         """Per-wire pubkey combine over SHARED decoded terms (reference
-        preprocess_from_decoded, naive_vec.rs:1539)."""
+        preprocess_from_decoded, naive_vec.rs:1539): the stack of one of
+        `preprocess_from_decoded_rows`."""
         params = self.params
-        a_prime = self._a_prime(refresh_id)
+        a_prime, keys = self.preprocess_from_decoded_rows(
+            [refresh_id], one_pk, rows.stack(params, [input_pk.matrix]), terms)
+        return (BggPublicKey(rows.unstack(params, a_prime)[0], True),
+                [rows.unstack(params, k)[0] for k in keys])
+
+    def a_prime_rows(self, refresh_ids: list[bytes]) -> torch.Tensor:
+        """The hash-derived A' of many refresh ids as one EVAL stack
+        [L, W, d, m, n] (`_a_prime` of each)."""
+        m_g = self.d * self.params.modulus_digits
+        return self._hash.sample_hash_stacked(
+            self.params, self.hash_key, [b"nr_a_prime:" + r for r in refresh_ids],
+            self.d, m_g, FinRingDist(), eval_form=True,
+        )
+
+    def preprocess_from_decoded_rows(self, refresh_ids: list[bytes], one_pk: BggPublicKey,
+                                     input_rows: torch.Tensor, terms: list[PolyMatrix]):
+        """`preprocess_from_decoded` of W wires at once: the input public keys
+        as an EVAL stack [L, W, d, m, n]. Returns (the A' stack, per CRT level
+        the stack of refresh-key matrices T_i)."""
+        params = self.params
+        q = params.tables(self.device).moduli
+        a_prime = self.a_prime_rows(refresh_ids)
         gadget = PolyMatrix.gadget_matrix(params, self.d, self.device)
         refresh_keys = []
         for crt_idx, q_i in enumerate(params.moduli):
             qhat = params.modulus // int(q_i)
-            input_term = input_pk.matrix_mul(
-                params, gadget.mul_int_scalar(qhat)
-            ).matrix
-            one_term = one_pk.matrix_mul(
-                params, a_prime.mul_int_scalar(qhat)
-            ).matrix
-            refresh_keys.append(input_term + terms[crt_idx] - one_term)
-        return BggPublicKey(a_prime, True), refresh_keys
+            input_term = rows.mul_decompose_const(params, input_rows, gadget.mul_int_scalar(qhat))
+            one_term = rows.left_mul_decompose(params, one_pk.matrix,
+                                               rows.mul_int(params, a_prime, qhat))
+            term = terms[crt_idx].to_eval().data[:, None]
+            refresh_keys.append(ew_sub(ew_add(input_term, term, q), one_term, q))
+        return a_prime, refresh_keys
 
     def preprocess(self, refresh_id: bytes, one_pk: BggPublicKey,
                    input_pk: BggPublicKey, k_pk: BggPublicKey,
@@ -518,29 +548,40 @@ class NoiseRefresherNaiveVec:
                                  input_enc: BggEncoding, terms: list[PolyMatrix],
                                  decoders: list[PolyMatrix]) -> BggEncoding:
         """Per-wire encoding combine over SHARED decoded terms;
-        decoders[crt_idx] = state0 @ stored_preimage(T_i)."""
+        decoders[crt_idx] = state0 @ stored_preimage(T_i). The stack of one
+        of `online_eval_from_decoded_rows`."""
         params = self.params
-        a_prime = self._a_prime(refresh_id)
+        a_prime, vec = self.online_eval_from_decoded_rows(
+            [refresh_id], one_enc, rows.stack(params, [input_enc.vector]), terms,
+            [rows.stack(params, [d]) for d in decoders])
+        return BggEncoding(rows.unstack(params, vec, COEFF)[0],
+                           BggPublicKey(rows.unstack(params, a_prime)[0], True),
+                           input_enc.plaintext)
+
+    def online_eval_from_decoded_rows(self, refresh_ids: list[bytes], one_enc: BggEncoding,
+                                      input_rows: torch.Tensor, terms: list[PolyMatrix],
+                                      decoder_rows: list[torch.Tensor]):
+        """`online_eval_from_decoded` of W wires at once: the input encoding
+        vectors and each level's decoders as EVAL stacks. Returns (the A'
+        stack, the refreshed vectors as a COEFF stack)."""
+        params = self.params
+        q = params.tables(self.device).moduli
+        a_prime = self.a_prime_rows(refresh_ids)
         gadget = PolyMatrix.gadget_matrix(params, self.d, self.device)
         acc = None
         for crt_idx, q_i in enumerate(params.moduli):
             qhat = params.modulus // int(q_i)
-            input_term = input_enc.matrix_mul(
-                params, gadget.mul_int_scalar(qhat)
-            ).vector
-            one_term = one_enc.matrix_mul(
-                params, a_prime.mul_int_scalar(qhat)
-            ).vector
-            level = input_term + terms[crt_idx] - one_term - decoders[crt_idx]
-            rounded = level.modulus_switch(int(q_i))
-            reconst = (
-                params.modulus // int(q_i)
-                * pow(params.modulus // int(q_i), -1, int(q_i))
-                % params.modulus
-            )
-            term = rounded.mul_int_scalar(reconst)
-            acc = term if acc is None else acc + term
-        return BggEncoding(acc, BggPublicKey(a_prime, True), input_enc.plaintext)
+            input_term = rows.mul_decompose_const(params, input_rows, gadget.mul_int_scalar(qhat))
+            one_term = rows.left_mul_decompose(params, one_enc.vector,
+                                               rows.mul_int(params, a_prime, qhat))
+            term = terms[crt_idx].to_eval().data[:, None]
+            level = ew_sub(ew_sub(ew_add(input_term, term, q), one_term, q),
+                           decoder_rows[crt_idx], q)
+            rounded = rows.modulus_switch(params, level, int(q_i))
+            reconst = qhat * pow(qhat, -1, int(q_i)) % params.modulus
+            out = rows.mul_int(params, rounded, reconst)
+            acc = out if acc is None else ew_add(acc, out, q)
+        return a_prime, acc
 
     def online_eval(self, refresh_id: bytes, one_enc: BggEncoding,
                     input_enc: BggEncoding, k_enc: BggEncoding,

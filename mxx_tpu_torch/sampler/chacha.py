@@ -29,61 +29,71 @@ _DOMAIN_NORMAL = 5
 _SIGMA = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)
 _M32 = 0xFFFFFFFF
 _N_ROUNDS = 20
+# Blocks per pass on the CPU. A pass's ops cover [4, 2^13] words, torch's
+# grain for one thread: larger ops run on several threads, which thrash when
+# processes share the cores (as the test workers do), and ops over millions
+# of words ran slower per word there (buffers past the allocator's reuse
+# threshold are mapped afresh). The card takes one pass.
+_CPU_BLOCKS = 1 << 13
 
 
 def _rotl(x: torch.Tensor, n: int) -> torch.Tensor:
     return ((x << n) & _M32) | (x >> (32 - n))
 
 
-def _quarter_round(s, a, b, c, d):
-    sa, sb, sc, sd = s[a], s[b], s[c], s[d]
-    sa = (sa + sb) & _M32
-    sd = _rotl(sd ^ sa, 16)
-    sc = (sc + sd) & _M32
-    sb = _rotl(sb ^ sc, 12)
-    sa = (sa + sb) & _M32
-    sd = _rotl(sd ^ sa, 8)
-    sc = (sc + sd) & _M32
-    sb = _rotl(sb ^ sc, 7)
-    s[a], s[b], s[c], s[d] = sa, sb, sc, sd
+def _quarter_rounds(a, b, c, d):
+    """Four quarter rounds at once: row i of a, b, c, d ([4, nblocks]) is one
+    quarter round's (a, b, c, d)."""
+    a = (a + b) & _M32
+    d = _rotl(d ^ a, 16)
+    c = (c + d) & _M32
+    b = _rotl(b ^ c, 12)
+    a = (a + b) & _M32
+    d = _rotl(d ^ a, 8)
+    c = (c + d) & _M32
+    b = _rotl(b ^ c, 7)
+    return a, b, c, d
 
 
-def _chacha_state(key8: torch.Tensor, counters: torch.Tensor, nonce0: int, nonce1: int,
-                  nonce2: int) -> list[torch.Tensor]:
-    """Final ChaCha20 state words (rounds + feed-forward), each int64[nblocks].
+def _chacha_words(key8: torch.Tensor, counters: torch.Tensor, nonce0: int, nonce1: int,
+                  nonce2: int) -> torch.Tensor:
+    """Final ChaCha20 state words (rounds + feed-forward), int64[16, nblocks].
 
     key8: int64[8], or int64[nblocks, 8] for a key per block; counters:
-    int64[nblocks]; nonces: ints < 2^32."""
+    int64[nblocks]; nonces: ints < 2^32. The state is held as four rows of
+    four words: a column round is the four quarter rounds on the rows as
+    they stand, a diagonal round the same after rotating rows b, c, d by 1,
+    2, 3 (about 650 tensor ops per call, not 2,300 with one op per word)."""
     nb = counters.shape[0]
+    if counters.device.type == "cpu" and nb > _CPU_BLOCKS:
+        return torch.cat([
+            _chacha_words(key8 if key8.dim() == 1 else key8[i : i + _CPU_BLOCKS],
+                          counters[i : i + _CPU_BLOCKS], nonce0, nonce1, nonce2)
+            for i in range(0, nb, _CPU_BLOCKS)
+        ], dim=1)
 
     def full(v):
         return torch.full((nb,), v, dtype=torch.int64, device=counters.device)
 
-    init = [full(c) for c in _SIGMA]
-    init += [key8[..., i].expand(nb) for i in range(8)]
-    init += [counters, full(nonce0), full(nonce1), full(nonce2)]
-    s = list(init)
+    init = torch.stack([full(c) for c in _SIGMA] + [key8[..., i].expand(nb) for i in range(8)]
+                       + [counters, full(nonce0), full(nonce1), full(nonce2)])
+    a, b, c, d = init[0:4], init[4:8], init[8:12], init[12:16]
     for _ in range(_N_ROUNDS // 2):
-        _quarter_round(s, 0, 4, 8, 12)
-        _quarter_round(s, 1, 5, 9, 13)
-        _quarter_round(s, 2, 6, 10, 14)
-        _quarter_round(s, 3, 7, 11, 15)
-        _quarter_round(s, 0, 5, 10, 15)
-        _quarter_round(s, 1, 6, 11, 12)
-        _quarter_round(s, 2, 7, 8, 13)
-        _quarter_round(s, 3, 4, 9, 14)
-    return [(x + i) & _M32 for x, i in zip(s, init)]
+        a, b, c, d = _quarter_rounds(a, b, c, d)
+        a, b, c, d = _quarter_rounds(a, b.roll(-1, 0), c.roll(-2, 0), d.roll(1, 0))
+        b, c, d = b.roll(1, 0), c.roll(2, 0), d.roll(-1, 0)
+    return (torch.cat([a, b, c, d]) + init) & _M32
 
 
 def _chacha_blocks(key8, counters, nonce0, nonce1, nonce2) -> torch.Tensor:
     """ChaCha20 keystream blocks int64[nblocks, 16]."""
-    return torch.stack(_chacha_state(key8, counters, nonce0, nonce1, nonce2), dim=-1)
+    return _chacha_words(key8, counters, nonce0, nonce1, nonce2).T
 
 
 def _chacha_blocks_words_major(key8, counters, nonce0, nonce1, nonce2) -> torch.Tensor:
     """Same keystream as `_chacha_blocks`, stacked [16, nblocks] (word index
     major)."""
-    return torch.stack(_chacha_state(key8, counters, nonce0, nonce1, nonce2), dim=0)
+    return _chacha_words(key8, counters, nonce0, nonce1, nonce2)
 
 
 def _keystream_words(key8: torch.Tensor, nwords: int, domain: int) -> torch.Tensor:

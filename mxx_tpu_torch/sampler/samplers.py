@@ -97,9 +97,17 @@ class HashSampler:
         """`sample_hash` for many tags in one batch of (tag, column) lanes,
         bit-identical to per-tag calls; with `eval_form` the matrices come back
         transformed to EVAL form by one batched NTT."""
+        data = self.sample_hash_stacked(params, key, tags, nrow, ncol, dist, eval_form)
+        fmt = EVAL if eval_form else COEFF
+        return [PolyMatrix(data[:, i], fmt, params) for i in range(len(tags))]
+
+    def sample_hash_stacked(self, params: RingParams, key: bytes, tags: list, nrow: int,
+                            ncol: int, dist: DistType, eval_form: bool = False) -> torch.Tensor:
+        """The matrices of `sample_hash_batch` as one [L, B, nrow, ncol, n]
+        tensor (COEFF, or EVAL with `eval_form`)."""
         domain = _dist_domain(dist)
-        base = np.stack([np.frombuffer(core.derive_key_bytes(key, tag, domain), dtype="<u4")
-                         for tag in tags]).astype(np.int64)
+        base = np.frombuffer(b"".join(core.derive_key_bytes(key, tag, domain) for tag in tags),
+                             dtype="<u4").reshape(len(tags), 8).astype(np.int64)
         B = len(tags)
         keys = torch.from_numpy(base).to(self.device).repeat_interleave(ncol, dim=0)
         cols = torch.arange(ncol, dtype=torch.int64, device=self.device).repeat(B)
@@ -107,11 +115,7 @@ class HashSampler:
         L, n = params.crt_depth, params.n
         planes = _lane_planes(keys, cols, dist, nrow, n, q)  # [B * ncol, L, nrow, n]
         data = planes.reshape(B, ncol, L, nrow, n).permute(2, 0, 3, 1, 4).contiguous()
-        fmt = COEFF
-        if eval_form:
-            data = ntt_fwd_auto(data, params)
-            fmt = EVAL
-        return [PolyMatrix(data[:, i], fmt, params) for i in range(B)]
+        return ntt_fwd_auto(data, params) if eval_form else data
 
     def sample_hash_decomposed(self, params: RingParams, key: bytes, tag, nrow: int, ncol: int,
                                dist: DistType) -> PolyMatrix:

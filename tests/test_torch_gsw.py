@@ -2,14 +2,16 @@
 mask circuits of `decoder/mask_circuit.py`) against the JAX package: native
 encryption under the same `Drbg`, every circuit gate for gate, and the
 decrypt, mask and error-decrypt cases of `tests/test_gsw_decrypt.py`
-evaluated to the same integers over `Poly` wires on the CPU. Integer work,
-tolerance 0. The packed circuits need vector wires and slot-transfer
+evaluated to the same integers over `Poly` wires on the CPU, and one ring
+AND, every gate's wire, over BGG+ encodings. Integer work, tolerance 0. The packed circuits need vector wires and slot-transfer
 evaluators, which the port does not have yet: they are held by structure and
 by their native (host) functions.
 """
 
+import importlib
 import random
 
+import numpy as np
 import pytest
 
 from test_torch_structure import BOTH, assert_circuits_equal, load
@@ -208,6 +210,82 @@ def test_external_product_evaluates_equal():
         assert _relation_holds(ns, ctx, native, 1, 1)
         outs.append(native)
     assert outs[0] == outs[1]
+
+
+def test_ring_and_over_bgg_encodings_equal():
+    """The Goldreich predicate's GSW product as real-mode Diamond iO runs it:
+    one Ring-GSW AND of two ciphertexts' wires (nested-RNS Mul,
+    SmallScalarMul and PubLut gates), reduced at the circuit boundary, over
+    BGG+ encodings of the ciphertexts' wire values (in the port through the
+    arena evaluator) at the smallest real-mode config, (2, 1, 12, 12) with a
+    wide p-basis below 2^6: every output's vector, public key and plaintext
+    equal to the JAX package's, bit for bit, from the same input encodings,
+    and so is every other gate's wire."""
+    from mxx_tpu_torch import convert
+    from mxx_tpu_torch.bgg.lift import lift_constants_batched
+    from mxx_tpu_torch.circuit.arena_eval import eval_arena
+    from mxx_tpu_torch.matrix import rows
+
+    key = bytes(range(32))
+    port, jax = load("mxx_tpu_torch"), load("mxx_tpu")
+    pbgg, jbgg = (importlib.import_module(f"{p}.bgg") for p in BOTH[::-1])
+    pdebug, jdebug = (importlib.import_module(f"{p}.lookup.debug") for p in BOTH[::-1])
+    sampler = importlib.import_module("mxx_tpu_torch.sampler")
+    circuits = []
+    for ns in (port, jax):
+        params, _, ctx = _setup(ns, (2, 1, 12, 12), 6, 2, "wide")
+        circuit = ctx.fresh_circuit()
+        a, b = (ns.ring_gsw.RingGswCiphertext.input(ctx, circuit, canonical=False)
+                for _ in range(2))
+        out = a.and_(b, circuit).reduced(circuit).flatten()
+        # every gate's wire is an output: the debug LUT evaluator's outputs
+        # depend only on their inputs' plaintexts, so a vector or public key
+        # is held where its gate computes it
+        circuit.output(out + [g.gate_id for g in circuit.gates if g.kind != "Input"])
+        circuits.append((params, ctx, circuit))
+    (params, ctx, circuit), (jp, _, jcircuit) = circuits
+
+    # the port's input encodings of two encryptions of 1, each carried over
+    rng = random.Random(5)
+    cts = [port.ring_gsw.native_encrypt(ctx, 1, 1, rng) for _ in range(2)]
+    values = [x for ct in cts for row in ct for v in row
+              for lvl in port.nested.encode_nested_rns_value(ctx.nested, v % ctx.q_big)
+              for x in lvl]
+    one = pbgg.BGGPublicKeySampler(key, 1, device="cpu").sample(params, b"gsw_and", [])[0]
+    # a uniform secret: a ternary one at n=2 is zero one time in nine
+    s = sampler.UniformSampler(seed=3, device="cpu").sample_uniform(
+        params, 1, 1, sampler.FinRingDist())
+    assert s.to_coeff().data.any()
+    gadget = port.matrix.PolyMatrix.gadget_matrix(params, 1, "cpu")
+    one_enc = pbgg.BggEncoding(s @ (one.matrix - gadget), one, port.one(params))
+    ins = lift_constants_batched(params, one_enc, values)
+
+    def to_jax(e):
+        pk = jbgg.BggPublicKey(jax.matrix.PolyMatrix(convert.to_numpy(e.pubkey.matrix),
+                                                     e.pubkey.matrix.fmt, jp),
+                               e.pubkey.reveal_plaintext)
+        return jbgg.BggEncoding(
+            jax.matrix.PolyMatrix(convert.to_numpy(e.vector), e.vector.fmt, jp), pk,
+            jax.poly.Poly(convert.to_numpy(e.plaintext), e.plaintext.fmt, jp))
+
+    ev = pdebug.DebugBGGEncodingPltEvaluator(key, s)
+    assert eval_arena(circuit, params, one_enc, ins, ev) is not None
+    mine = circuit.eval(params, one_enc, ins, plt_evaluator=ev, batched=True)
+    js = jax.matrix.PolyMatrix(convert.to_numpy(s), s.fmt, jp)
+    theirs = jcircuit.eval(jp, to_jax(one_enc), [to_jax(e) for e in ins],
+                           plt_evaluator=jdebug.DebugBGGEncodingPltEvaluator(key, js),
+                           batched=True)
+    assert len(mine) == len(theirs) == len(a.flatten()) + circuit.num_gates() - len(ins) - 1
+
+    def planes(mats, jax_side):
+        """[W, L, ...] EVAL residues of a side's matrices or polys."""
+        if jax_side:
+            return np.stack([np.asarray(m.to_eval().data) for m in mats]).astype(np.int64)
+        return rows.stack(params, mats).transpose(0, 1).numpy()
+
+    for part in (lambda w: w.vector, lambda w: w.pubkey.matrix, lambda w: w.plaintext):
+        np.testing.assert_array_equal(planes([part(w) for w in mine], False),
+                                      planes([part(w) for w in theirs], True))
 
 
 def _packed(ns):

@@ -43,6 +43,18 @@ def test_chacha_rfc8439_vector():
     assert chacha.self_test_vector(device="cpu")
 
 
+def test_fold_in_batch_over_several_cpu_passes_equal():
+    """More blocks than one CPU pass (`chacha._CPU_BLOCKS`), each with its
+    own key: the per-lane fold_in equals the JAX package's."""
+    nb = chacha._CPU_BLOCKS + 3
+    keys = np.random.default_rng(5).integers(0, 1 << 32, size=(nb, 8), dtype=np.uint64)
+    datas = np.arange(nb, dtype=np.uint64) * 7919 % (1 << 32)
+    _eq(chacha.fold_in_batch(torch.from_numpy(keys.astype(np.int64)),
+                             torch.from_numpy(datas.astype(np.int64))),
+        jax_chacha.fold_in_batch(jnp.asarray(keys.astype(np.uint32)),
+                                 jnp.asarray(datas.astype(np.uint32))))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_fold_in_split_equal(seed):
     k, jk = _keys(seed)
