@@ -245,7 +245,19 @@ no package beside it, a kernel that does not build, launch or agree):
    passes), gates/s per pass, preimage calls and columns, files and bytes,
    peak device memory and host RSS, and the K1/K2/K3 launches (none: n=2
    takes the radix chain both ways);
-27. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
+27. `production ring`: the main path at the production depth of the
+   security-100 table (L=53, crt_bits 28, base_bits 14, k = 106 digits, d=1,
+   sigma 4.578), through `mxx_tpu_torch/scripts/security100_parameter_table.py`
+   `measure_preimage` (a warm-up and two timed calls, B x == U checked after
+   each): the table's anchors, 8 columns at n=2^13 and n=2^14, then the
+   preimage directly at n=2^16 over 2 columns, and over 4 if the 2-column
+   run's peak, scaled, stays under 60 GiB; each ring with the K1/K2/K3
+   counters reset before it and read after it (K1 and K2 required at 2^13
+   and 2^14, K3 at 2^16), its cols/s and peak device memory printed, the
+   direct run's cols/s beside the value extrapolated from the anchors; then
+   the table's rows from the measured anchors, printed and written to
+   `build/mxx_tpu_torch/security_bits_100_diamond_io_parameters.csv`;
+28. timings (CUDA events, a warm-up, the median of a few runs): forward NTT
    at shape A (K1, K3, radix chain) and K2 there, preimage-cols/s, a profiled
    preimage, its device time split by stage, GSW ext-prods/s at n=2^13, L=8,
    B=64, the two batched BGG passes, and a profiled batched encoding pass,
@@ -257,10 +269,14 @@ no package beside it, a kernel that does not build, launch or agree):
    transform of the preimage ([10, 1000, 16384]), K3's whole transform at
    [10, 500, 32768], [10, 250, 65536] and [3, 4096, 256]; and K1 against K3
    in turns (K1, K3, K3, K1) at [10, 1000, 16384] and [8, 512, 8192], with
-   the routing of 2048 <= n <= 16384 they support beside ring/ntt.py's;
-28. one JSON line of kernels (`launches` from one path: the LWE LUT chain
+   the routing of 2048 <= n <= 16384 they support beside ring/ntt.py's; and at
+   the production depth, K1 and K2 at [53, 848, 16384] (the anchor
+   preimage's largest transform) and K3's whole transform at
+   [53, 212, 65536] (the direct 2-column preimage's);
+29. one JSON line of kernels (`launches` from one path: the LWE LUT chain
    for K1/K2, the diamond io noise phase for K3's whole transform, K3's own
-   path for its head; each path's count beside it in `launches_by_path`;
+   path for its head, the production ring phase for the L=53 rows; each
+   path's count beside it in `launches_by_path`;
    each row's least time `bound_ms`, the larger of its device-memory time
    and its integer floor, and its share `pct_of_bound`; beside it
    `bound_ms_u32`, the same bound for the TPU kernel's uint32 layout, 8
@@ -3379,6 +3395,107 @@ def drive_diamond_io_real(dev, timing) -> dict:
             "files": len(files), "bytes": nbytes}
 
 
+PROD_DIRECT_N = 65536  # the production rows' ring degree, run directly
+PROD_DIRECT_COLS = (2, 4)  # its columns: the second only if its peak is predicted to fit
+PROD_PEAK_LIMIT = 60 * 2**30  # bytes of device memory the direct run may take
+
+
+def drive_production_ring(dev, timing) -> dict:
+    """The main path at the production depth (L=53, crt_bits 28, base_bits
+    14, d=1, sigma 4.578): the security-100 table's preimage anchors (8 cols
+    at n=2^13 and 2^14) and the preimage directly at n=2^16, each through
+    `measure_preimage` (a warm-up and two timed calls, B x == U checked
+    after every call), with the K1/K2/K3 counters reset before each ring and
+    read after it, and the peak device memory of each; then the table's rows
+    from the measured anchors, written to the CSV under build/. Returns the
+    per-ring and total launches, the anchors, the rows and the shapes of the
+    largest transforms (for the kernel rows)."""
+    import torch
+
+    from mxx_tpu_torch.ops import hybrid_ntt
+    from mxx_tpu_torch.ring import ntt
+    from mxx_tpu_torch.ring.params import RingParams
+    from mxx_tpu_torch.scripts import security100_parameter_table as table
+
+    depth, d = table.ANCHOR_DEPTH, table.ANCHOR_D
+
+    def run(n, cols):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = table.measure_preimage(n, depth, d, cols, dev)
+        torch.cuda.synchronize()
+        res.update(counts=launch_counts(), seconds=time.perf_counter() - t0, base=base,
+                   peak=torch.cuda.max_memory_allocated() - base)
+        c = res["counts"]
+        timing(f"production ring: preimage n={n} L={depth} d={d} cols={cols}",
+               res["cols_per_s"], "preimage-cols/s",
+               f" (calls {', '.join(f'{ms:.1f}' for ms in res['call_ms'])} ms; B x == U after "
+               f"each of 3 calls; peak device memory {res['peak'] / 2**30:.3f} GiB above the "
+               f"phase's start, {res['held_bytes'] / 2**30:.3f} GiB held by trapdoor, target "
+               f"and operands; route fwd {ntt.fwd_route(dev.type, n).upper()}; launches K1 "
+               f"{c['fwd']}, K2 {c['inv']}, K3 {c['hybrid']} over trapdoor, 3 calls and checks; "
+               f"{res['seconds']:.1f} s with the trapdoor)")
+        return res
+
+    anchors, per_ring = {}, {}
+    for n in table.ANCHOR_RINGS:
+        res = run(n, table.ANCHOR_COLS)
+        if res["counts"]["fwd"] == 0 or res["counts"]["inv"] == 0:
+            raise SystemExit(f"chip_smoke: the production ring at n={n} did not go through K1 "
+                             "and K2")
+        anchors[n] = res["cols_per_s"]
+        per_ring[n] = res["counts"]
+
+    extrapolated = table.extrapolated_cols_per_s(anchors)
+    params = {n: RingParams.new(n, depth, table.CRT_BITS, table.BASE_BITS)
+              for n in (max(table.ANCHOR_RINGS), PROD_DIRECT_N)}
+    plan = hybrid_ntt.launch_plan(PROD_DIRECT_N, 1, max(params[PROD_DIRECT_N].moduli))
+    direct_cols = PROD_DIRECT_COLS[0]
+    res = run(PROD_DIRECT_N, direct_cols)
+    # the body (all but what the trapdoor holds) grows with the columns
+    body = res["peak"] - res["held_bytes"]
+    predicted = res["base"] + res["held_bytes"] + body * PROD_DIRECT_COLS[1] // direct_cols
+    fits = predicted < PROD_PEAK_LIMIT
+    print(f"production ring: n={PROD_DIRECT_N} at {PROD_DIRECT_COLS[1]} cols would peak at "
+          f"{predicted / 2**30:.3f} GiB (scaled from {direct_cols} cols); limit "
+          f"{PROD_PEAK_LIMIT / 2**30:.0f} GiB: {'run' if fits else 'not run'}", flush=True)
+    if fits:
+        direct_cols = PROD_DIRECT_COLS[1]
+        res = run(PROD_DIRECT_N, direct_cols)
+    if res["counts"]["hybrid"] == 0:
+        raise SystemExit(f"chip_smoke: the production ring at n={PROD_DIRECT_N} did not go "
+                         "through K3")
+    per_ring[PROD_DIRECT_N] = res["counts"]
+    timing(f"production ring: preimage n={PROD_DIRECT_N} L={depth} cols={direct_cols}, measured",
+           res["cols_per_s"], "preimage-cols/s",
+           f" beside {extrapolated:.4f} extrapolated from the anchors (measured / extrapolated "
+           f"{res['cols_per_s'] / extrapolated:.3f}); K3 over a cluster of {plan.cluster} "
+           f"blocks forward, the radix chain inverse")
+
+    rows = table.table_rows(anchors, dev)
+    for row in rows:
+        print(f"production ring: table row {json.dumps(row)}", flush=True)
+    note = (f"measured on the card ({card_line()}) by chip_smoke.py: d={d}, "
+            f"{table.ANCHOR_COLS} cols, L={depth}, "
+            + ", ".join(f"n={n} {c!r} cols/s" for n, c in anchors.items()))
+    table.write_csv(rows, note, table.DEFAULT_OUT)
+    print(f"production ring: wrote {table.DEFAULT_OUT}", flush=True)
+
+    k = params[PROD_DIRECT_N].modulus_digits
+    return {"per_ring": per_ring, "anchors": anchors, "rows": rows,
+            "launches": {key: sum(c[key] for c in per_ring.values())
+                         for key in ("fwd", "inv", "hybrid")},
+            "anchor_params": params[max(table.ANCHOR_RINGS)],
+            "anchor_polys": d * k * table.ANCHOR_COLS,
+            # the kernel row's shape is the first direct run's: a larger one
+            # with its plain version and chain beside it would not fit
+            "direct_params": params[PROD_DIRECT_N], "direct_polys": d * k * PROD_DIRECT_COLS[0]}
+
+
 MESH_REQUESTS = (17, 17, 16)  # the bench preimage's 50 columns as three requests
 MESH_PRE_RING = (16384, 10, 24, 12)  # phase 4's ring
 MESH_RING = (8192, 8, 28, 14)  # the limb x column, switch and LWE chain ring
@@ -3612,13 +3729,58 @@ K3_ROWS = (((32768, 10, 24, 12), 500), ((65536, 10, 24, 12), 250), ((256, 3, 24,
 K1_K3_TURNS = (((16384, 10, 24, 12), 1000), ((8192, 8, 28, 14), 512))
 
 
+def kernel_row(c: dict, timing, radix_err: int, at_a: dict) -> dict:
+    """One row of the kernels line: case `c`'s kernel against its plain
+    version, the radix chain and (where given) K1, bit for bit, then its
+    time (median of 10), bounds, plain and chain times."""
+    name, source, run, plain, chain = c["name"], c["source"], c["run"], c["plain"], c["chain"]
+    got = run()
+    err = max_err(got, plain())
+    full = c["then"](got) if "then" in c else got
+    err = max(err, max_err(full, chain()))
+    if c.get("k1") is not None:
+        err = max(err, max_err(full, c["k1"]()))
+    if source == "radix_ntt.cu":
+        err = max(err, radix_err)
+    del got, full
+    ms = cuda_ms(run, 10)
+    ms_plain = cuda_ms(plain, c["plain_iters"])
+    ms_chain = cuda_ms(chain, 3)
+    shape = list(c["x"].shape)
+    bound = ntt_bound(shape, c["products"])
+    entry = {"name": name, "route": "cuda", "source": f"mxx_tpu_torch/csrc/{source}",
+             "replaces": c["replaces"], "launches": c["launches"], "max_abs_err": err,
+             "ms": ms, "plain_ms": ms_plain, "bound_ms": bound["bound_ms"],
+             "bound_by": bound["bound_by"], "bytes_ms": bound["bytes_ms"],
+             "int_floor_ms": bound["int_floor_ms"], "products_per_poly": c["products"],
+             "bound_ms_u32": bound["bound_ms_u32"], "bound_by_u32": bound["bound_by_u32"],
+             "pct_of_bound": 100 * bound["bound_ms"] / ms,
+             "pct_of_bound_u32": 100 * bound["bound_ms_u32"] / ms, "library_ms": None,
+             "library": "none: no PyTorch call computes an exact NTT mod q",
+             "shape": shape, "chain_ms": ms_chain, "launches_by_path": c["by_path"]}
+    if name in at_a:
+        entry["at_shape_a"] = at_a[name]
+    timing(name if "[" in name else f"{name} {shape}", ms, "ms",
+           f" kernel ({entry['pct_of_bound']:.1f}% of its bound {bound['bound_ms']:.4f} ms, "
+           f"bound by {bound['bound_by']}; integer floor {bound['int_floor_ms']:.4f} ms "
+           f"({c['products']} modular products per poly); uint32-layout bound "
+           f"{bound['bound_ms_u32']:.4f} ms, bound by {bound['bound_by_u32']}, "
+           f"{entry['pct_of_bound_u32']:.1f}%); plain version {ms_plain:.3f} ms, radix chain "
+           f"{ms_chain:.3f} ms, max |kernel - plain, chain" + (", K1" if c.get("k1") else "")
+           + f"| {err} (tolerance 0: bit-exact)")
+    if err != 0:
+        raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
+    return entry
+
+
 def drive_kernel_rows(dev, timing, pp, xm, by_path, lut_counts, radix_counts, radix_err,
-                      noise_hybrid, at_a) -> list:
+                      noise_hybrid, at_a, prod) -> list:
     """The kernels line's rows: K1/K2 at xm ([10, 1000, 16384], the
     preimage's largest transform), K3's head there and its whole transform
     there and at K3_ROWS, each against its plain version, the radix chain and
     (at 2^14) K1, with its time, bounds, plain and chain times; the production
-    ring's ntt_fwd_auto and, above 2^14, ntt_inv_auto (the radix chain); K1
+    ring's ntt_fwd_auto and, above 2^14, ntt_inv_auto (the radix chain); the
+    L=53 rows at the shapes of `prod` (drive_production_ring's result); K1
     against K3 in turns at K1_K3_TURNS."""
     import torch
 
@@ -3696,47 +3858,39 @@ def drive_kernel_rows(dev, timing, pp, xm, by_path, lut_counts, radix_counts, ra
             plain=partial(hybrid_ntt.ntt_fwd_hybrid_plain, xk, pk),
             chain=partial(ntt.ntt_fwd, xk, tk.psi_rev, tk.moduli),
             k1=k1_of if n == pp.n else None, plain_iters=3, products=ntt_products(n, n)))
+    # the production depth (phase 27): K1/K2 at the anchor preimage's largest
+    # transform, K3 at the direct n=2^16 preimage's, launches from that phase
+    xp = residues(prod["anchor_params"], (prod["anchor_polys"],), 9, dev)
+    tp = prod["anchor_params"].tables(dev)
+    prod_n1 = prod["anchor_params"].n // four_step.KERNEL_N2
+    for name, inverse, chain in (("four_step_ntt_fwd", False,
+                                  partial(ntt.ntt_fwd, xp, tp.psi_rev, tp.moduli)),
+                                 ("four_step_ntt_inv", True,
+                                  partial(ntt.ntt_inv, xp, tp.psi_inv_rev, tp.n_inv, tp.moduli))):
+        fn = four_step.four_step_ntt_inv if inverse else four_step.four_step_ntt_fwd
+        plain = (four_step.four_step_ntt_inv_plain if inverse
+                 else four_step.four_step_ntt_fwd_plain)
+        d = "inv" if inverse else "fwd"
+        cases.append(dict(
+            name=f"{name} {list(xp.shape)}", source="four_step_ntt.cu",
+            replaces="mxx_tpu/ops/pallas_four_step.py:135", launches=prod["launches"][d],
+            by_path=by_path[d], x=xp, run=partial(fn, xp, prod["anchor_params"], prod_n1),
+            plain=partial(plain, xp, prod["anchor_params"], prod_n1), chain=chain,
+            plain_iters=1, products=ntt_products(xp.shape[-1], xp.shape[-1], True)))
+    pd = prod["direct_params"]
+    xd = residues(pd, (prod["direct_polys"],), 10, dev)
+    td = pd.tables(dev)
+    cases.append(dict(
+        name=f"ntt_fwd_hybrid {list(xd.shape)}", source="radix_ntt.cu",
+        replaces="mxx_tpu/ops/pallas_ntt.py:37", launches=prod["launches"]["hybrid"],
+        by_path=by_path["hybrid"], x=xd, run=partial(hybrid_ntt.ntt_fwd_hybrid, xd, pd),
+        plain=partial(hybrid_ntt.ntt_fwd_hybrid_plain, xd, pd),
+        chain=partial(ntt.ntt_fwd, xd, td.psi_rev, td.moduli), plain_iters=1,
+        products=ntt_products(pd.n, pd.n)))
     for c in cases:
-        name, source, run, plain, chain = c["name"], c["source"], c["run"], c["plain"], c["chain"]
-        got = run()
-        err = max_err(got, plain())
-        full = c["then"](got) if "then" in c else got
-        err = max(err, max_err(full, chain()))
-        if c.get("k1") is not None:
-            err = max(err, max_err(full, c["k1"]()))
-        if source == "radix_ntt.cu":
-            err = max(err, radix_err)
-        del got, full
-        ms = cuda_ms(run, 10)
-        ms_plain = cuda_ms(plain, c["plain_iters"])
-        ms_chain = cuda_ms(chain, 3)
-        shape = list(c["x"].shape)
-        bound = ntt_bound(shape, c["products"])
-        entry = {"name": name, "route": "cuda", "source": f"mxx_tpu_torch/csrc/{source}",
-                 "replaces": c["replaces"], "launches": c["launches"], "max_abs_err": err,
-                 "ms": ms, "plain_ms": ms_plain, "bound_ms": bound["bound_ms"],
-                 "bound_by": bound["bound_by"], "bytes_ms": bound["bytes_ms"],
-                 "int_floor_ms": bound["int_floor_ms"], "products_per_poly": c["products"],
-                 "bound_ms_u32": bound["bound_ms_u32"], "bound_by_u32": bound["bound_by_u32"],
-                 "pct_of_bound": 100 * bound["bound_ms"] / ms,
-                 "pct_of_bound_u32": 100 * bound["bound_ms_u32"] / ms, "library_ms": None,
-                 "library": "none: no PyTorch call computes an exact NTT mod q",
-                 "shape": shape, "chain_ms": ms_chain, "launches_by_path": c["by_path"]}
-        if name in at_a:
-            entry["at_shape_a"] = at_a[name]
-        timing(name if "[" in name else f"{name} {shape}", ms, "ms",
-               f" kernel ({entry['pct_of_bound']:.1f}% of its bound {bound['bound_ms']:.4f} ms, "
-               f"bound by {bound['bound_by']}; integer floor {bound['int_floor_ms']:.4f} ms "
-               f"({c['products']} modular products per poly); uint32-layout bound "
-               f"{bound['bound_ms_u32']:.4f} ms, bound by {bound['bound_by_u32']}, "
-               f"{entry['pct_of_bound_u32']:.1f}%); plain version {ms_plain:.3f} ms, radix chain "
-               f"{ms_chain:.3f} ms, max |kernel - plain, chain" + (", K1" if c.get("k1") else "")
-               + f"| {err} (tolerance 0: bit-exact)")
-        if err != 0:
-            raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
-        kernels.append(entry)
+        kernels.append(kernel_row(c, timing, radix_err, at_a))
         torch.cuda.empty_cache()
-    del k3_rings, xr
+    del k3_rings, xr, xp, xd, cases
 
     # K1 against K3 in turns (K1, K3, K3, K1; median of 10 each), the measurement
     # behind ring/ntt.py's routing of 2048 <= n <= 16384
@@ -3917,7 +4071,11 @@ def main() -> None:
     real_dio_counts = drive_diamond_io_real(dev, timing)["launches"]
     torch.cuda.empty_cache()
 
-    # 27. timings
+    # 27. the main path at the production depth, and the security-100 table
+    prod = drive_production_ring(dev, timing)
+    torch.cuda.empty_cache()
+
+    # 28. timings
     t = p.tables(dev)
     xa = residues(p, (512,), 4, dev)
     ms_kernel = cuda_ms(lambda: four_step.four_step_ntt_fwd(xa, p, 64), 10)
@@ -3986,12 +4144,13 @@ def main() -> None:
              "ntt circuit": nttc_counts, "diamond io lwe": lwe_dio_counts,
              "diamond io noise": noise_dio_counts, "diamond io real": real_dio_counts,
              "mesh (1x4 sharded preimage)": mesh["preimage"],
-             "mesh (lwe lut chain over 1x4)": mesh["lwe"]}
+             "mesh (lwe lut chain over 1x4)": mesh["lwe"],
+             **{f"production ring n={n}": c for n, c in prod["per_ring"].items()}}
     by_path = {d: {name: c[d] for name, c in paths.items()} for d in ("fwd", "inv", "hybrid")}
     by_path["hybrid"]["radix path"] = radix_counts["hybrid"]
 
     kernels = drive_kernel_rows(dev, timing, pp, xm, by_path, lut_counts, radix_counts,
-                                radix_err, noise_dio_counts["hybrid"], at_a)
+                                radix_err, noise_dio_counts["hybrid"], at_a, prod)
     del xm
     torch.cuda.empty_cache()
 
