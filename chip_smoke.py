@@ -45,8 +45,8 @@ no package beside it, a kernel that does not build, launch or agree):
    masked-rounding decode, with the four-step kernels' launch counters reset
    before and read after; checked against the oracle, A_LT online ==
    offline, the error against the q/(2p) budget, and B K_high == target for
-   every stored row; each sub-phase timed after a synchronize (the port's
-   tracing spans, which synchronize when enabled);
+   every stored row; each sub-phase timed by the port's tracing spans
+   (their device time from CUDA events, without a synchronize);
 8. Diamond witness encryption at the same ring (injector input_count 2,
    base 2, batch_bits 1, trapdoor sigma 4.578, error sigma 4.0; 2 witness
    bits, the circuit OR(w0, w1) with one instance bit): `enc` of False and
@@ -286,7 +286,6 @@ no package beside it, a kernel that does not build, launch or agree):
 """
 
 import json
-import logging
 import math
 import os
 import resource
@@ -436,11 +435,11 @@ def drive_radix(dev, shapes) -> tuple[dict, int]:
         p = RingParams.new(*args)
         inputs.append((label, p, residues(p, (B,), 6, dev)))
     torch.cuda.synchronize()
-    hybrid_ntt.launches.update(head=0, hybrid=0)
+    reset_launches()
     results = [(hybrid_ntt.ntt_fwd_head(x, p), hybrid_ntt.ntt_fwd_hybrid(x, p))
                for _, p, x in inputs]
     torch.cuda.synchronize()
-    counts = dict(hybrid_ntt.launches)
+    counts = launch_counts()
     print(f"radix path: launches head {counts['head']}, hybrid {counts['hybrid']}", flush=True)
     worst = 0
     for (label, p, x), (head, full) in zip(inputs, results):
@@ -614,35 +613,33 @@ def mod_p_chain(p):
     return c
 
 
-class SpanLog(logging.Handler):
-    """Collects the port's span and event records (utils/tracing.py)."""
-
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.records = []
-
-    def emit(self, record):
-        self.records.append(record)
-
-    def total_ms(self, name) -> float:
-        return sum(r.elapsed_ms for r in self.records if getattr(r, "span", None) == name)
-
-    def events(self, name) -> list[dict]:
-        return [r.fields for r in self.records if getattr(r, "event", None) == name]
+class SpanLog:
+    """The port's spans and events over a phase: a thin reader of
+    `utils/tracing.py`'s `recording()`. A span's `ms` includes the device work
+    it queued (its CUDA events, read when the recording closes)."""
 
     def __enter__(self):
-        log = logging.getLogger("mxx_tpu_torch")
-        self._saved = (log.level, log.propagate)
-        log.setLevel(logging.INFO)
-        log.propagate = False
-        log.addHandler(self)
+        from mxx_tpu_torch.utils import tracing
+
+        self._recording = tracing.recording()
+        self.rec = self._recording.__enter__()
         return self
 
     def __exit__(self, *exc):
-        log = logging.getLogger("mxx_tpu_torch")
-        log.removeHandler(self)
-        log.setLevel(self._saved[0])
-        log.propagate = self._saved[1]
+        return self._recording.__exit__(*exc)
+
+    @property
+    def records(self) -> list:
+        return self.rec.spans
+
+    def named(self, name) -> list:
+        return self.rec.named(name)
+
+    def total_ms(self, name) -> float:
+        return sum(r.ms for r in self.rec.named(name))
+
+    def events(self, name) -> list[dict]:
+        return [e.fields for e in self.rec.events if e.name == name]
 
 
 def drive_lwe_lut(p, dev, timing, mesh=None, label="lwe lut chain") -> tuple[dict, dict]:
@@ -778,8 +775,7 @@ def drive_lwe_lut(p, dev, timing, mesh=None, label="lwe lut chain") -> tuple[dic
     if not all((ok_oracle, ok_alt, ok_rows, ok_decode)):
         raise SystemExit(f"chip_smoke: {label} check failed (bad rows {bad[:5]})")
 
-    cols = sum(r.fields["cols"] for r in spans.records
-               if getattr(r, "span", None) == "lwe_lut.k_high_preimages")
+    cols = sum(r.fields["cols"] for r in spans.named("lwe_lut.k_high_preimages"))
     writes = spans.events("storage.write_part")
     pre_ms = ms["K_high preimages"] = spans.total_ms("lwe_lut.k_high_preimages")
     d2h_ms = spans.total_ms("storage.device_to_host")
@@ -1138,21 +1134,28 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def reset_launches() -> None:
-    """Zero the launch counters of K1/K2 (four_step) and K3 (hybrid_ntt)."""
-    from mxx_tpu_torch.ops import four_step, hybrid_ntt
+# the tracer's kernel-launch counters, under this script's names
+LAUNCH_COUNTERS = {"fwd": "ntt.k1", "inv": "ntt.k2", "head": "ntt.k3_head",
+                   "hybrid": "ntt.k3_whole"}
+_launch_base: dict = {}
 
-    four_step.launches.update(fwd=0, inv=0)
-    hybrid_ntt.launches.update(head=0, hybrid=0)
+
+def reset_launches() -> None:
+    """Start counting K1/K2 (four_step) and K3 (hybrid_ntt) launches anew."""
+    from mxx_tpu_torch.utils import tracing
+
+    _launch_base.clear()
+    _launch_base.update(tracing.counters())
 
 
 def launch_counts() -> dict:
-    """Launches since reset_launches: K1 "fwd", K2 "inv", K3 "head" and
-    "hybrid" (ring/ntt.py routes forward transforms of 256 <= n < 2048 and
-    16384 < n <= 65536 on the card to K3's "hybrid")."""
-    from mxx_tpu_torch.ops import four_step, hybrid_ntt
+    """Launches since reset_launches, from the tracer's counters: K1 "fwd",
+    K2 "inv", K3 "head" and "hybrid" (ring/ntt.py routes forward transforms
+    of 256 <= n < 2048 and 16384 < n <= 65536 on the card to K3's "hybrid")."""
+    from mxx_tpu_torch.utils import tracing
 
-    return {**four_step.launches, **hybrid_ntt.launches}
+    now = tracing.counters()
+    return {key: now[c] - _launch_base.get(c, 0) for key, c in LAUNCH_COUNTERS.items()}
 
 
 def require_launches(phase: str, counts: dict) -> None:
@@ -1880,8 +1883,7 @@ def drive_ggh15_chain(p, dev, timing) -> dict:
           f"slot errors {[bits(e) for e in slot_errs]} in (0, q/4): {ok_slots}; launches "
           f"in the phase: fwd {counts['fwd']}, inv {counts['inv']}", flush=True)
     pre_ms = spans.total_ms("ggh15.preimages")
-    span_cols = sum(r.fields["cols"] for r in spans.records
-                    if getattr(r, "span", None) == "ggh15.preimages")
+    span_cols = sum(r.fields["cols"] for r in spans.named("ggh15.preimages"))
     writes = spans.events("storage.write_part")
     timing("ggh15 chain: plaintext oracle", ms_oracle, "ms")
     timing("ggh15 chain: pubkey pass", ms_pk, "ms")
@@ -3048,8 +3050,7 @@ def drive_diamond_io_lwe(dev, timing) -> dict:
         ("wait_for_all_writes", "diamond_io.wait_for_all_writes")))
         + f"; {rss.note()}")
     for bits, out, ms, margins, log, peak in results:
-        reads = sum(r.fields["gates"] for r in log.records
-                    if getattr(r, "span", None) == "lwe_lut.k_high_reads")
+        reads = sum(r.fields["gates"] for r in log.named("lwe_lut.k_high_reads"))
         timing(f"diamond io lwe: eval {bits}", ms / 1e3, "s", span_line(log, (
             ("injector online", "diamond_injector.online_eval"),
             ("LUT bridge encoding", "diamond_io.lut_bridge_encoding"),
@@ -3330,8 +3331,7 @@ def drive_diamond_io_real(dev, timing) -> dict:
     ok_replay = obf.prf_debug is None or not obf.prf_debug.prg_cts
     ok_pks = all(r[5] for r in results)
     wires = len(offline[0])
-    wrapped = [r.fields["gates"] for r in obf_log.records
-               if getattr(r, "span", None) == "diamond_io.pk_circuit_eval"]
+    wrapped = [r.fields["gates"] for r in obf_log.named("diamond_io.pk_circuit_eval")]
     shapes["wrapped"] = f"{wrapped[0]} gates"
     print(f"diamond io real n={p.n} L={p.crt_depth} crt_bits {p.crt_bits} base_bits "
           f"{p.base_bits}, real mode (in-circuit PRG rounds, PRG-derived refresh material, "
@@ -3355,10 +3355,10 @@ def drive_diamond_io_real(dev, timing) -> dict:
                             ("refresh material", "noise_refresh.prg_material_circuit"),
                             ("wrapped", "diamond_io.pk_circuit_eval"),
                             ("wrapped", "diamond_io.enc_circuit_eval")):
-            recs = [r for r in log.records if getattr(r, "span", None) == name]
+            recs = log.named(name)
             if recs:
                 g = sum(r.fields["gates"] for r in recs)
-                ms = sum(r.elapsed_ms for r in recs)
+                ms = sum(r.ms for r in recs)
                 out.append(f"{label} {g / ms * 1e3:.0f} gates/s ({g} gates, {ms / 1e3:.3f} s)")
         return "; gates/s per pass: " + ", ".join(out)
 

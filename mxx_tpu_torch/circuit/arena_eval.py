@@ -37,6 +37,7 @@ import torch
 
 from .. import config
 from ..bgg import BggEncoding, BggPublicKey
+from ..utils.tracing import span
 from .batched_eval import Rows, _parts, gate_rows, rows_of, scalar_rows, wires_of
 from .gate import ADD, INPUT, LARGE_SCALAR_MUL, MUL, PUB_LUT, SMALL_SCALAR_MUL, SUB
 
@@ -194,9 +195,10 @@ def eval_arena(circuit, params, one, inputs, plt_evaluator=None, param_bindings:
         return None
 
     device = pk0.data.device
-    ar = _Arena(params, G, tuple(pk0.shape), tuple(vec0.shape) if enc else None, device)
-    present = np.array([i for i, w in enumerate(wires_in) if w is not None])
-    ar.put(present, *rows_of(params, [wires_in[i] for i in present]))
+    with span("circuit.stack"):
+        ar = _Arena(params, G, tuple(pk0.shape), tuple(vec0.shape) if enc else None, device)
+        present = np.array([i for i, w in enumerate(wires_in) if w is not None])
+        ar.put(present, *rows_of(params, [wires_in[i] for i in present]))
     gates = circuit.gates
 
     def lut_level(ids):
@@ -227,23 +229,35 @@ def eval_arena(circuit, params, one, inputs, plt_evaluator=None, param_bindings:
                                               ar.wires(pl.in0[[i]])[0], int(i), gates[i].payload)
             ar.put(np.array([i]), *rows_of(params, [out]))
 
-    for kind, _, ids in pl.groups:
+    # per (level, kind) group: the operands' rows taken from the arena, the
+    # scalars, the gates, the results put back, each a span of its own
+    for kind, level, ids in pl.groups:
         if kind == PUB_LUT:
-            lut_level(ids)
+            with span("circuit.gate_rows", kind=kind, level=level, gates=len(ids)):
+                lut_level(ids)
             continue
         a = pl.in0[ids]
         reveal, known = ar.reveal[a], ar.pt_ok[a]
         b = scalars = None
-        if kind in (ADD, SUB, MUL):
-            if kind == MUL and enc and not known.all():
-                raise ValueError("unknown plaintext for the left-hand input of multiplication")
-            b = ar.take(pl.in1[ids])
-            reveal, known = reveal & ar.reveal[pl.in1[ids]], known & ar.pt_ok[pl.in1[ids]]
-        else:
-            scalars = scalar_rows(params, [circuit._resolve_payload(gates[i].payload,
-                                                                    param_bindings)
-                                           for i in ids], device)
-        ar.put(ids, gate_rows(params, kind, ar.take(a), b, scalars), reveal, known)
+        if kind == MUL and enc and not known.all():
+            raise ValueError("unknown plaintext for the left-hand input of multiplication")
+        with span("circuit.stack"):
+            left = ar.take(a)
+            if kind in (ADD, SUB, MUL):
+                b = ar.take(pl.in1[ids])
+                reveal, known = reveal & ar.reveal[pl.in1[ids]], known & ar.pt_ok[pl.in1[ids]]
+        if b is None:
+            with span("circuit.scalar_rows"):
+                scalars = scalar_rows(params, [circuit._resolve_payload(gates[i].payload,
+                                                                        param_bindings)
+                                               for i in ids], device)
+        with span("circuit.gate_rows", kind=kind, level=level, gates=len(ids)):
+            out = gate_rows(params, kind, left, b, scalars)
+        del left, b, scalars  # the operands go before the next group's
+        with span("circuit.stack"):
+            ar.put(ids, out, reveal, known)
+        del out
 
     # copies: no output keeps the arena alive
-    return ar.wires(np.asarray(circuit.output_ids, dtype=np.int64), fresh=True)
+    with span("circuit.stack"):
+        return ar.wires(np.asarray(circuit.output_ids, dtype=np.int64), fresh=True)

@@ -52,6 +52,7 @@ from ..matrix.rows import stack as stack_rows
 from ..ops.elementwise import ew_add, ew_mul, ew_sub
 from ..ops.zq_matmul import zq_matmul
 from ..ring.poly import EVAL, Poly, scalar_poly
+from ..utils.tracing import span
 from .gate import ADD, INPUT, LARGE_SCALAR_MUL, MUL, PUB_LUT, SMALL_SCALAR_MUL, SUB, Gate
 
 MIN_BATCH = 3
@@ -364,14 +365,20 @@ def gate_rows(params, kind, a: Rows, b: Rows | None = None, scalars=None) -> Row
 
 def _exec(params, kind, gates, wires, resolve) -> list:
     """A batch of gates of one kind over the wire map, through `gate_rows`."""
-    a, reveal, known = rows_of(params, [wires[g.inputs[0]] for g in gates])
     b = scalars = None
-    if kind in (ADD, SUB, MUL):
-        b, reveal_b, known_b = rows_of(params, [wires[g.inputs[1]] for g in gates])
-        reveal, known = reveal & reveal_b, known & known_b
-    else:
-        scalars = scalar_rows(params, [resolve(g) for g in gates], a.pk.device)
-    return wires_of(params, gate_rows(params, kind, a, b, scalars), reveal, known)
+    with span("circuit.stack"):
+        a, reveal, known = rows_of(params, [wires[g.inputs[0]] for g in gates])
+        if kind in (ADD, SUB, MUL):
+            b, reveal_b, known_b = rows_of(params, [wires[g.inputs[1]] for g in gates])
+            reveal, known = reveal & reveal_b, known & known_b
+    if b is None:
+        with span("circuit.scalar_rows"):
+            scalars = scalar_rows(params, [resolve(g) for g in gates], a.pk.device)
+    with span("circuit.gate_rows", kind=kind, gates=len(gates)):
+        out = gate_rows(params, kind, a, b, scalars)
+    del a, b, scalars
+    with span("circuit.stack"):
+        return wires_of(params, out, reveal, known)
 
 
 def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
@@ -381,135 +388,138 @@ def eval_batched(circuit, params, one, inputs, plt_evaluator=None,
     Results are bit-identical to the sequential evaluator. With a
     `live_bytes_budget` (or MXX_CIRCUIT_LIVE_BYTES_BUDGET), idle wires beyond
     the budget spill to host compact bytes (pass `wire_store_out=[]` to
-    receive the WireStore for peak/spill introspection)."""
+    receive the WireStore for peak/spill introspection). The pass is one
+    `circuit.eval_batched` span, the root of its stacking, scalar and
+    gate-batch spans."""
     assert len(inputs) == circuit.num_input
-    budget = (
-        live_bytes_budget
-        if live_bytes_budget is not None
-        else config.circuit_live_bytes_budget()
-    )
-    if not budget and wire_store_out is None:
-        # a uniform BGG+ circuit over one arena of wires (arena_eval.py)
-        from .arena_eval import eval_arena
-
-        out = eval_arena(circuit, params, one, inputs, plt_evaluator, param_bindings)
-        if out is not None:
-            return out
-    uses = circuit.use_counts()
-    wires = WireStore(params, budget)
-    if wire_store_out is not None:
-        wire_store_out.append(wires)
-    # vec wires go to EVAL form once here (their slots repeat the one and -k
-    # wires, which every gate that stacks them would transform again); a
-    # scalar wire keeps its form
-    memo: dict = {}
-    for i, v in enumerate([one] + list(inputs)):
-        wires[i] = _eval_form(v, memo) if _is_vec(v) else v
-    del memo
-    one = wires[0]
-    remaining = list(uses)
-    out_set = set(circuit.output_ids)
-    call_cache: dict = {}
-    summed_cache: dict = {}
-
-    def consume(gate):
-        for i in gate.inputs:
-            remaining[i] -= 1
-            if remaining[i] == 0 and i not in out_set:
-                wires.pop(i, None)
-
-    def eval_sub(circuit_id, sub_inputs, bindings):
-        sub = circuit.sub_circuits[circuit_id]
-        return eval_batched(
-            sub, params, one, sub_inputs, plt_evaluator,
-            slot_transfer_evaluator, param_bindings=bindings,
-            live_bytes_budget=budget,
+    with span("circuit.eval_batched", gates=circuit.num_gates()):
+        budget = (
+            live_bytes_budget
+            if live_bytes_budget is not None
+            else config.circuit_live_bytes_budget()
         )
+        if not budget and wire_store_out is None:
+            # a uniform BGG+ circuit over one arena of wires (arena_eval.py)
+            from .arena_eval import eval_arena
 
-    def eval_one(g):
-        """Sequential fallback, mirroring PolyCircuit.eval's dispatch."""
-        wires[g.gate_id] = circuit._gate_dispatch(
-            g, wires, params, one, plt_evaluator, slot_transfer_evaluator,
-            param_bindings, call_cache, summed_cache, eval_sub,
-        )
+            out = eval_arena(circuit, params, one, inputs, plt_evaluator, param_bindings)
+            if out is not None:
+                return out
+        uses = circuit.use_counts()
+        wires = WireStore(params, budget)
+        if wire_store_out is not None:
+            wire_store_out.append(wires)
+        # vec wires go to EVAL form once here (their slots repeat the one and -k
+        # wires, which every gate that stacks them would transform again); a
+        # scalar wire keeps its form
+        memo: dict = {}
+        for i, v in enumerate([one] + list(inputs)):
+            wires[i] = _eval_form(v, memo) if _is_vec(v) else v
+        del memo
+        one = wires[0]
+        remaining = list(uses)
+        out_set = set(circuit.output_ids)
+        call_cache: dict = {}
+        summed_cache: dict = {}
 
-    def resolve(g):
-        return circuit._resolve_payload(g.payload, param_bindings)
+        def consume(gate):
+            for i in gate.inputs:
+                remaining[i] -= 1
+                if remaining[i] == 0 and i not in out_set:
+                    wires.pop(i, None)
 
-    plt_batch = getattr(plt_evaluator, "public_lookup_batch", None)
+        def eval_sub(circuit_id, sub_inputs, bindings):
+            sub = circuit.sub_circuits[circuit_id]
+            return eval_batched(
+                sub, params, one, sub_inputs, plt_evaluator,
+                slot_transfer_evaluator, param_bindings=bindings,
+                live_bytes_budget=budget,
+            )
 
-    def exec_group(kind, gates, wire_map):
-        return _exec(params, kind, gates, wire_map, resolve)
+        def eval_one(g):
+            """Sequential fallback, mirroring PolyCircuit.eval's dispatch."""
+            wires[g.gate_id] = circuit._gate_dispatch(
+                g, wires, params, one, plt_evaluator, slot_transfer_evaluator,
+                param_bindings, call_cache, summed_cache, eval_sub,
+            )
 
-    for level in circuit.compute_levels():
-        # group batchable gates by signature
-        groups: dict = {}
-        lut_gates = []
-        singles = []
-        for gid in level:
-            g = circuit.gates[gid]
-            if g.kind in _BATCHABLE:
-                sig = _wire_sig(circuit, wires, g) or _vec_sig(circuit, wires, g)
-                if sig is not None:
-                    groups.setdefault(sig, []).append(g)
-                    continue
-            elif g.kind == PUB_LUT and plt_batch is not None and (
-                _is_bgg(wires[g.inputs[0]]) or _is_vec(wires[g.inputs[0]])
-            ):
-                lut_gates.append(g)
-                continue
-            singles.append(g)
-        if len(lut_gates) >= 2 or any(_is_vec(wires[g.inputs[0]]) for g in lut_gates):
-            # group by input wire type/shape: the batch evaluators stack operands
-            lut_groups: dict = {}
-            for g in lut_gates:
-                w = wires[g.inputs[0]]
-                ns = len(_vec_slots(w)) if _is_vec(w) else 0
-                x = _vec_slots(w)[0] if ns else w
-                m = x.vector if hasattr(x, "vector") else x.matrix
-                lut_groups.setdefault((type(w).__name__, ns, m.shape), []).append(g)
-            for (_, ns, _), group in lut_groups.items():
-                least = 1 if ns else 2
-                for part in _parts(group, wires[group[0].inputs[0]], least):
-                    if len(part) < least:
-                        singles.extend(part)
+        def resolve(g):
+            return circuit._resolve_payload(g.payload, param_bindings)
+
+        plt_batch = getattr(plt_evaluator, "public_lookup_batch", None)
+
+        def exec_group(kind, gates, wire_map):
+            return _exec(params, kind, gates, wire_map, resolve)
+
+        for level in circuit.compute_levels():
+            # group batchable gates by signature
+            groups: dict = {}
+            lut_gates = []
+            singles = []
+            for gid in level:
+                g = circuit.gates[gid]
+                if g.kind in _BATCHABLE:
+                    sig = _wire_sig(circuit, wires, g) or _vec_sig(circuit, wires, g)
+                    if sig is not None:
+                        groups.setdefault(sig, []).append(g)
                         continue
-                    items = [
-                        (circuit.luts[g.payload], wires[g.inputs[0]], g.gate_id, g.payload)
-                        for g in part
-                    ]
-                    for g, out in zip(part, plt_batch(params, items)):
+                elif g.kind == PUB_LUT and plt_batch is not None and (
+                    _is_bgg(wires[g.inputs[0]]) or _is_vec(wires[g.inputs[0]])
+                ):
+                    lut_gates.append(g)
+                    continue
+                singles.append(g)
+            if len(lut_gates) >= 2 or any(_is_vec(wires[g.inputs[0]]) for g in lut_gates):
+                # group by input wire type/shape: the batch evaluators stack operands
+                lut_groups: dict = {}
+                for g in lut_gates:
+                    w = wires[g.inputs[0]]
+                    ns = len(_vec_slots(w)) if _is_vec(w) else 0
+                    x = _vec_slots(w)[0] if ns else w
+                    m = x.vector if hasattr(x, "vector") else x.matrix
+                    lut_groups.setdefault((type(w).__name__, ns, m.shape), []).append(g)
+                for (_, ns, _), group in lut_groups.items():
+                    least = 1 if ns else 2
+                    for part in _parts(group, wires[group[0].inputs[0]], least):
+                        if len(part) < least:
+                            singles.extend(part)
+                            continue
+                        items = [
+                            (circuit.luts[g.payload], wires[g.inputs[0]], g.gate_id, g.payload)
+                            for g in part
+                        ]
+                        for g, out in zip(part, plt_batch(params, items)):
+                            wires[g.gate_id] = out
+                            consume(g)
+            else:
+                singles.extend(lut_gates)
+            for sig, group in groups.items():
+                if sig[0] == "vec":
+                    # every (gate, slot) of the group in scalar batches, then
+                    # each gate's vec regrouped from its slots
+                    pseudo, slot_wires = _flatten_vec(group, wires)
+                    slot_outs = []
+                    for part in _parts(pseudo, slot_wires[pseudo[0].inputs[0]], 1):
+                        slot_outs.extend(exec_group(sig[2], part, slot_wires))
+                    del slot_wires
+                    ns = sig[1]
+                    for j, g in enumerate(group):
+                        ctor = _vec_ctor(wires[g.inputs[0]])
+                        wires[g.gate_id] = ctor(slot_outs[j * ns : (j + 1) * ns])
+                        consume(g)
+                    continue
+                for gates in _parts(group, wires[group[0].inputs[0]], MIN_BATCH):
+                    if len(gates) < MIN_BATCH:
+                        singles.extend(gates)
+                        continue
+                    for g, out in zip(gates, exec_group(sig[0], gates, wires)):
                         wires[g.gate_id] = out
                         consume(g)
-        else:
-            singles.extend(lut_gates)
-        for sig, group in groups.items():
-            if sig[0] == "vec":
-                # every (gate, slot) of the group in scalar batches, then
-                # each gate's vec regrouped from its slots
-                pseudo, slot_wires = _flatten_vec(group, wires)
-                slot_outs = []
-                for part in _parts(pseudo, slot_wires[pseudo[0].inputs[0]], 1):
-                    slot_outs.extend(exec_group(sig[2], part, slot_wires))
-                del slot_wires
-                ns = sig[1]
-                for j, g in enumerate(group):
-                    ctor = _vec_ctor(wires[g.inputs[0]])
-                    wires[g.gate_id] = ctor(slot_outs[j * ns : (j + 1) * ns])
-                    consume(g)
-                continue
-            for gates in _parts(group, wires[group[0].inputs[0]], MIN_BATCH):
-                if len(gates) < MIN_BATCH:
-                    singles.extend(gates)
+            # deterministic order for the sequential remainder
+            for g in sorted(singles, key=lambda g: g.gate_id):
+                if g.kind == INPUT:
                     continue
-                for g, out in zip(gates, exec_group(sig[0], gates, wires)):
-                    wires[g.gate_id] = out
-                    consume(g)
-        # deterministic order for the sequential remainder
-        for g in sorted(singles, key=lambda g: g.gate_id):
-            if g.kind == INPUT:
-                continue
-            eval_one(g)
-            consume(g)
+                eval_one(g)
+                consume(g)
 
-    return [wires[o] for o in circuit.output_ids]
+        return [wires[o] for o in circuit.output_ids]

@@ -435,10 +435,6 @@ class DiamondIO:
         return out
 
     def obfuscate(self, dir_path, builder) -> DiamondIOObf:
-        with span("diamond_io.obfuscate", input_bits=self.num_input_bits):
-            return self._obfuscate(dir_path, builder)
-
-    def _obfuscate(self, dir_path, builder) -> DiamondIOObf:
         params = self.params
         cfg = self.prf_config
         d = Path(dir_path)
@@ -640,10 +636,6 @@ class DiamondIO:
     # --------------------------------------------------------------- online
 
     def eval(self, dir_path, obf: DiamondIOObf, builder, input_bits: list[int]) -> list[int]:
-        with span("diamond_io.eval", input_bits=len(input_bits)):
-            return self._eval(dir_path, obf, builder, input_bits)
-
-    def _eval(self, dir_path, obf: DiamondIOObf, builder, input_bits: list[int]) -> list[int]:
         params = self.params
         cfg = self.prf_config
         d = Path(dir_path)

@@ -247,11 +247,6 @@ class GGH15BGGPubKeyPltEvaluator:
 
     # ---- offline sampling
 
-    def sample_aux_matrices(self, params):
-        with span("ggh15.sample_aux_matrices", luts=len(self.lut_state),
-                  gates=len(self.gate_state)):
-            return self._sample_aux_matrices(params)
-
     def _trapdoor(self, params, trap_sampler, name: str):
         loaded = self._load_trapdoor(params, name)
         if loaded is not None:
@@ -295,7 +290,7 @@ class GGH15BGGPubKeyPltEvaluator:
             targets.append(w_id + gy_terms[y.value] + v_term + vx_term.mul_poly_scalar(x_poly))
         return targets
 
-    def _sample_aux_matrices(self, params):
+    def sample_aux_matrices(self, params):
         storage = get_storage_system()
         trap_sampler = TrapdoorSampler(params, self.trapdoor_sigma, device=self.device)
         d = self.d

@@ -536,11 +536,10 @@ class NoiseRefresherNaiveVec:
         """Pubkey path: returns (a_prime pubkey, refresh-key matrices T_i).
         The caller persists trapdoor preimages of [T_i; 0] as decoders
         (reference preprocess_from_decoded + DiamondIO refresh preimages)."""
-        with span("noise_refresh.preprocess", refresh_id=refresh_id.hex()[:12]):
-            terms = self.decoded_terms(
-                one_pk, k_pk, material, plt_evaluator, lambda w: w.matrix
-            )
-            return self.preprocess_from_decoded(refresh_id, one_pk, input_pk, terms)
+        terms = self.decoded_terms(
+            one_pk, k_pk, material, plt_evaluator, lambda w: w.matrix
+        )
+        return self.preprocess_from_decoded(refresh_id, one_pk, input_pk, terms)
 
     # ------------------------------------------------------------- online
 
@@ -588,10 +587,9 @@ class NoiseRefresherNaiveVec:
                     material: RefreshMaterialCts, decoders: list[PolyMatrix],
                     plt_evaluator) -> BggEncoding:
         """Encoding path: decoders[crt_idx] = state0 @ stored_preimage(T_i)."""
-        with span("noise_refresh.online_eval", refresh_id=refresh_id.hex()[:12]):
-            terms = self.decoded_terms(
-                one_enc, k_enc, material, plt_evaluator, lambda w: w.vector
-            )
-            return self.online_eval_from_decoded(
-                refresh_id, one_enc, input_enc, terms, decoders
-            )
+        terms = self.decoded_terms(
+            one_enc, k_enc, material, plt_evaluator, lambda w: w.vector
+        )
+        return self.online_eval_from_decoded(
+            refresh_id, one_enc, input_enc, terms, decoders
+        )

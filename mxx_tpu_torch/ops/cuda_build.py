@@ -6,7 +6,9 @@ nvcc for sm_90a, a host `.cpp` file (`csrc/host/`: the artifact codec and
 writer) by g++. It is built at first use into `build/mxx_tpu_torch/` at the
 root of the checkout, under a name keyed by a hash of the source and the
 flags; a later process finds the library there and only loads it. A failed
-or impossible build raises. Nothing here runs at import time.
+or impossible build raises. Nothing here runs at import time. Each first
+load in a process is a `kernels.load` span (field `built`), and each build
+is counted in `kernels.built`, so a rebuild shows in a trace.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from ..utils import tracing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mxx_tpu_torch"
@@ -66,28 +70,32 @@ def load(source: str) -> ctypes.CDLL:
     """The shared library built from `csrc/<source>`, building it if needed."""
     if source in _LOADED:
         return _LOADED[source][0]
-    src = CSRC / source
-    stem = _stem(source)
-    lib_path = stem.with_suffix(".so")
-    seconds = 0.0
-    if not lib_path.exists():
-        compiler = _nvcc() if source.endswith(".cu") else _gxx()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        # build under a temporary name and rename, so that concurrent
-        # processes never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [compiler, *_flags(source), "-o", tmp, str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        stem.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"{Path(compiler).name} failed on {src.name}:\n{log}")
-        os.replace(tmp, lib_path)
-        seconds = time.perf_counter() - t0
-    _LOADED[source] = (ctypes.CDLL(str(lib_path)), seconds)
+    with tracing.span("kernels.load", source=source) as exit_fields:
+        src = CSRC / source
+        stem = _stem(source)
+        lib_path = stem.with_suffix(".so")
+        seconds = 0.0
+        built = not lib_path.exists()
+        exit_fields["built"] = built
+        if built:
+            tracing.count("kernels.built")
+            compiler = _nvcc() if source.endswith(".cu") else _gxx()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            t0 = time.perf_counter()
+            # build under a temporary name and rename, so that concurrent
+            # processes never load a half-written library
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [compiler, *_flags(source), "-o", tmp, str(src)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            stem.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"{Path(compiler).name} failed on {src.name}:\n{log}")
+            os.replace(tmp, lib_path)
+            seconds = time.perf_counter() - t0
+        _LOADED[source] = (ctypes.CDLL(str(lib_path)), seconds)
     return _LOADED[source][0]
 
 

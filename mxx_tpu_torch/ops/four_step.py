@@ -19,8 +19,8 @@ quotients; the dense plain version below is independent of them.
 
 `four_step_ntt_fwd` / `four_step_ntt_inv` launch the kernel for a tensor on
 a CUDA device and take the plain version for a tensor on the CPU; anything
-the kernel does not take raises. `launches` counts kernel launches per
-direction.
+the kernel does not take raises. Each launch is counted in the tracer's
+`ntt.k1` (forward) or `ntt.k2` (inverse).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ..utils.numth import bit_reverse, find_primitive_2n_root
 from . import cuda_build
 
@@ -39,10 +40,6 @@ SOURCE = "four_step_ntt.cu"
 # the shapes the kernel takes: n2 = 128, n1 = n / 128 for 2048 <= n <= 16384
 KERNEL_N2 = 128
 KERNEL_N1 = (16, 32, 64, 128)
-
-# kernel launches per direction; a plain integer each, reset by callers that
-# want to count the launches of one run
-launches = {"fwd": 0, "inv": 0}
 
 
 # --------------------------------------------------------------- host tables
@@ -302,7 +299,7 @@ def _launch(x: torch.Tensor, params, n1: int, inverse: bool) -> torch.Tensor:
                  row.data_ptr(), q.data_ptr(), L, B, n1, n // n1, int(inverse), stream)
     if err != 0:
         raise RuntimeError(f"four-step NTT kernel launch failed: cudaError {err}")
-    launches["inv" if inverse else "fwd"] += 1
+    tracing.count("ntt.k2" if inverse else "ntt.k1")
     return out
 
 

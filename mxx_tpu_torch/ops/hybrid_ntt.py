@@ -17,7 +17,8 @@ kernel launch runs the stages down to a pair distance it is given.
 Each launches the kernel for a tensor on a CUDA device (256 <= n <= 65536,
 q < 2^31) and takes its plain version (`ntt_fwd_head_plain`,
 `ntt_fwd_hybrid_plain`) for a tensor on the CPU; anything the kernel does not
-take raises. `launches` counts kernel launches per entry point.
+take raises. Each launch is counted in the tracer's `ntt.k3_head` or
+`ntt.k3_whole`.
 
 `launch_plan` decides how the kernel runs a transform (stages per register
 pass, polys per block iteration, the cluster for n > 2^14, shared-memory
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ring import ntt
+from ..utils import tracing
 from ..utils.u32 import addmod, submod
 from . import cuda_build
 
@@ -55,10 +57,6 @@ EXCHANGE_SLOTS = 2
 # the most dynamic shared memory an H100 block of csrc/radix_ntt.cu may have
 # (227 KB, less its 16 bytes of static shared memory: the mbarrier)
 SMEM_PER_BLOCK = 227 * 1024 - 16
-
-# kernel launches per entry point; a plain integer each, reset by callers that
-# want to count the launches of one run
-launches = {"head": 0, "hybrid": 0}
 
 
 # ------------------------------------------------------------ plain version
@@ -367,7 +365,7 @@ def check_shape(x: torch.Tensor, params) -> None:
         raise ValueError("batch too large for one launch")
 
 
-def _launch(x: torch.Tensor, params, t_min: int, name: str) -> torch.Tensor:
+def _launch(x: torch.Tensor, params, t_min: int, counter: str) -> torch.Tensor:
     check_shape(x, params)
     out = torch.empty_like(x)
     L, n = params.crt_depth, params.n
@@ -386,7 +384,7 @@ def _launch(x: torch.Tensor, params, t_min: int, name: str) -> torch.Tensor:
                  plan.units(L, B, _sm_count(x.device)), stream)
     if err != 0:
         raise RuntimeError(f"radix NTT kernel launch failed: cudaError {err}")
-    launches[name] += 1
+    tracing.count(counter)
     return out
 
 
@@ -396,7 +394,7 @@ def ntt_fwd_head(x: torch.Tensor, params) -> torch.Tensor:
     _head_n(x)
     if x.device.type == "cpu":
         return ntt_fwd_head_plain(x, params)
-    return _launch(x, params, LANE, "head")
+    return _launch(x, params, LANE, "ntt.k3_head")
 
 
 def ntt_fwd_hybrid(x: torch.Tensor, params) -> torch.Tensor:
@@ -407,4 +405,4 @@ def ntt_fwd_hybrid(x: torch.Tensor, params) -> torch.Tensor:
         return ntt.ntt_fwd(x, t.psi_rev, t.moduli)
     if x.device.type == "cpu":
         return ntt_fwd_hybrid_plain(x, params)
-    return _launch(x, params, 1, "hybrid")
+    return _launch(x, params, 1, "ntt.k3_whole")

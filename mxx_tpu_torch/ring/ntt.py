@@ -20,7 +20,9 @@ everywhere else and on the CPU. The JAX package's TPU has no kernel for those
 n (its radix-2 head stops at t = 128 and the tail is jnp); on the card K3 runs
 all log2(n) stages in one launch, where the chain launches a few dozen torch
 operations per transform (PERF.md §6 gives the times). Every route computes
-the same transform, bit for bit.
+the same transform, bit for bit. A transform that goes through the chain is
+counted in the tracer's `ntt.chain_fwd` or `ntt.chain_inv`; the kernels
+count their own launches.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import four_step
+from ..utils import tracing
 from ..utils.u32 import addmod, mulmod, submod
 
 
@@ -194,6 +197,7 @@ def ntt_fwd_auto(x: torch.Tensor, params) -> torch.Tensor:
     if route == "k1":
         n1 = x.shape[-1] // four_step.KERNEL_N2
         return four_step.four_step_ntt_fwd(x.contiguous(), params, n1)
+    tracing.count("ntt.chain_fwd")
     t = params.tables(x.device)
     return ntt_fwd(x, t.psi_rev, t.moduli)
 
@@ -204,6 +208,7 @@ def ntt_inv_auto(x: torch.Tensor, params) -> torch.Tensor:
     n1 = _fused_plan(x)
     if n1 is not None:
         return four_step.four_step_ntt_inv(x.contiguous(), params, n1)
+    tracing.count("ntt.chain_inv")
     t = params.tables(x.device)
     return ntt_inv(x, t.psi_inv_rev, t.n_inv, t.moduli)
 

@@ -10,6 +10,11 @@ RFC-8439 ChaCha20 block function vectorized over blocks; the 16-word state is
 words carrying (counter_hi, stream word, purpose tag) so that the
 `random_bits` / `fold_in` / `split` streams never collide. 32-bit arithmetic
 is done in int64 and masked to 32 bits after every add and rotate.
+
+Each public entry that makes keystream (`normal`, `random_bits`, `fold_in`,
+`split` and the `*_batch` entries) is one `chacha.draw` span (the outer
+entry only, where one calls another), and the blocks it makes are counted
+in `chacha.blocks`: the samplers' layer in the port's traces.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..utils import tracing
 
 # Domain tags for the third nonce word (never reuse a (counter, nonce) pair
 # across purposes under one key).
@@ -87,12 +94,13 @@ def _chacha_words(key8: torch.Tensor, counters: torch.Tensor, nonce0: int, nonce
 
 def _chacha_blocks(key8, counters, nonce0, nonce1, nonce2) -> torch.Tensor:
     """ChaCha20 keystream blocks int64[nblocks, 16]."""
-    return _chacha_words(key8, counters, nonce0, nonce1, nonce2).T
+    return _chacha_blocks_words_major(key8, counters, nonce0, nonce1, nonce2).T
 
 
 def _chacha_blocks_words_major(key8, counters, nonce0, nonce1, nonce2) -> torch.Tensor:
     """Same keystream as `_chacha_blocks`, stacked [16, nblocks] (word index
-    major)."""
+    major); counted in `chacha.blocks` (64 bytes each)."""
+    tracing.count("chacha.blocks", counters.shape[0])
     return _chacha_words(key8, counters, nonce0, nonce1, nonce2)
 
 
@@ -108,13 +116,19 @@ def _keystream_words(key8: torch.Tensor, nwords: int, domain: int) -> torch.Tens
 def fold_in_batch(keys: torch.Tensor, datas: torch.Tensor) -> torch.Tensor:
     """Per-lane `fold_in`: keys int64[nb, 8], datas int64[nb] (< 2^32). Row i
     is bit-identical to `fold_in(keys[i], datas[i])`."""
-    return _chacha_blocks(keys, datas, 0, 0, _DOMAIN_FOLD)[:, :8]
+    with tracing.span("chacha.draw"):
+        return _chacha_blocks(keys, datas, 0, 0, _DOMAIN_FOLD)[:, :8]
 
 
 def keystream_words_batch(keys: torch.Tensor, nwords: int, domain: int) -> torch.Tensor:
     """int64[nb, nwords]: row i is bit-identical to
     `_keystream_words(keys[i], nwords, domain)` (the same word-major block
     order), computed as one flat batch of nb * nblocks blocks."""
+    with tracing.span("chacha.draw"):
+        return _keystream_words_batch(keys, nwords, domain)
+
+
+def _keystream_words_batch(keys: torch.Tensor, nwords: int, domain: int) -> torch.Tensor:
     nb = keys.shape[0]
     nblocks = -(-nwords // 16)
     lane_keys = keys.repeat_interleave(nblocks, dim=0)  # [nb * nblocks, 8]
@@ -128,8 +142,9 @@ def random_bits_batch(keys: torch.Tensor, shape: tuple, domain: int | None = Non
     """int64[nb, *shape] in [0, 2^32): row i is bit-identical to
     `random_bits(keys[i], shape)`."""
     n = math.prod(shape) if shape else 1
-    words = keystream_words_batch(keys, n, _DOMAIN_BITS if domain is None else domain)
-    return words.reshape((keys.shape[0],) + tuple(shape))
+    with tracing.span("chacha.draw"):
+        words = _keystream_words_batch(keys, n, _DOMAIN_BITS if domain is None else domain)
+        return words.reshape((keys.shape[0],) + tuple(shape))
 
 
 # ------------------------------------------------------------------ key API
@@ -147,13 +162,15 @@ def fold_in(key8: torch.Tensor, data: int) -> torch.Tensor:
     """New key = first 8 keystream words of block(counter=data_lo,
     nonce0=data_hi, domain FOLD), for an integer 0 <= data < 2^64."""
     data = int(data)
-    counters = torch.tensor([data & _M32], dtype=torch.int64, device=key8.device)
-    return _chacha_blocks(key8, counters, data >> 32, 0, _DOMAIN_FOLD)[0, :8]
+    with tracing.span("chacha.draw"):
+        counters = torch.tensor([data & _M32], dtype=torch.int64, device=key8.device)
+        return _chacha_blocks(key8, counters, data >> 32, 0, _DOMAIN_FOLD)[0, :8]
 
 
 def split(key8: torch.Tensor, num: int = 2) -> torch.Tensor:
     """int64[num, 8] of derived keys (domain SPLIT keystream)."""
-    return _keystream_words(key8, num * 8, _DOMAIN_SPLIT).reshape(num, 8)
+    with tracing.span("chacha.draw"):
+        return _keystream_words(key8, num * 8, _DOMAIN_SPLIT).reshape(num, 8)
 
 
 def split2(key8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -174,33 +191,35 @@ def random_bits(key8: torch.Tensor, shape: tuple, dtype: str = "uint32") -> torc
     JAX package's uint64 draw, as two's-complement int64 (view them as
     uint64 with numpy to compare)."""
     n = math.prod(shape) if shape else 1
-    if dtype == "uint64":
-        words = _keystream_words(key8, 2 * n, _DOMAIN_BITS)
-        return _u64_from_words(words[0::2], words[1::2]).reshape(shape)
-    if dtype == "uint32":
+    if dtype not in ("uint32", "uint64"):
+        raise ValueError(f"unsupported dtype {dtype}")
+    with tracing.span("chacha.draw"):
+        if dtype == "uint64":
+            words = _keystream_words(key8, 2 * n, _DOMAIN_BITS)
+            return _u64_from_words(words[0::2], words[1::2]).reshape(shape)
         return _keystream_words(key8, n, _DOMAIN_BITS).reshape(shape)
-    raise ValueError(f"unsupported dtype {dtype}")
 
 
 def normal(key8: torch.Tensor, shape: tuple, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Standard normals via Box-Muller over the NORMAL-domain keystream."""
     n = math.prod(shape) if shape else 1
     pairs = -(-n // 2)
-    if dtype == torch.float64:
-        words = _keystream_words(key8, 4 * pairs, _DOMAIN_NORMAL)
-        # (0, 1]: the top 53 bits of each uint64 word pair, +1 keeps log() finite
-        top53 = (words[1::2] << 21) | (words[0::2] >> 11)
-        u = (top53.to(torch.float64) + 1.0) * (2.0**-53)
-    elif dtype == torch.float32:
-        words = _keystream_words(key8, 2 * pairs, _DOMAIN_NORMAL)
-        u = (words.to(torch.float32) + 1.0) * (2.0**-32)
-    else:
+    if dtype not in (torch.float64, torch.float32):
         raise ValueError(f"unsupported dtype {dtype}")
-    u1, u2 = u[:pairs], u[pairs:]
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    theta = (2.0 * np.pi) * u2
-    z = torch.cat([r * torch.cos(theta), r * torch.sin(theta)])
-    return z[:n].reshape(shape)
+    with tracing.span("chacha.draw"):
+        if dtype == torch.float64:
+            words = _keystream_words(key8, 4 * pairs, _DOMAIN_NORMAL)
+            # (0, 1]: the top 53 bits of each uint64 word pair, +1 keeps log() finite
+            top53 = (words[1::2] << 21) | (words[0::2] >> 11)
+            u = (top53.to(torch.float64) + 1.0) * (2.0**-53)
+        else:
+            words = _keystream_words(key8, 2 * pairs, _DOMAIN_NORMAL)
+            u = (words.to(torch.float32) + 1.0) * (2.0**-32)
+        u1, u2 = u[:pairs], u[pairs:]
+        r = torch.sqrt(-2.0 * torch.log(u1))
+        theta = (2.0 * np.pi) * u2
+        z = torch.cat([r * torch.cos(theta), r * torch.sin(theta)])
+        return z[:n].reshape(shape)
 
 
 def self_test_vector(device="cuda") -> bool:

@@ -70,6 +70,7 @@ from ..matrix.offload import OffloadedMatrix
 from ..parallel.mesh import COL_AXIS
 from ..ring.params import RingParams
 from ..ring.poly import COEFF, EVAL
+from ..utils import tracing
 from ..utils.numth import modinv
 from . import chacha, core
 from .dist import FinRingDist, GaussDist
@@ -295,23 +296,30 @@ def _preimage_core(params: RingParams, key: torch.Tensor, target: PolyMatrix,
     # p2 ~ rounded normal at sigma_large (Peikert branch, sigma > 300). f32
     # rounding above 2^24 coarsens support to multiples of 2^(e-24): still
     # exact integers, relative granularity ~1e-7 of sigma_large.
-    gn = chacha.normal(kp2, (d * k, cols, n), torch.float32)
-    p2_int = torch.round(gn * float(np.float32(sigma_large)))
-    p2e = _matrix_from_signed(params, p2_int).to_eval()
-    tp2c = _centered_lift_f64(r_e.concat_rows([e_e]) @ p2e)
-    p1_normals = chacha.normal(kp1, tuple(tp2c.shape), torch.float32)
-    p1i = _sample_p1_ints(tp2c, sqrt_var, upd, c_scale, p1_normals)
-    p1e = _matrix_from_signed(params, p1i).to_eval()
-    p_hat_e = p1e.concat_rows([p2e])
-    syndrome = (target - pub @ p_hat_e).to_coeff()
-    g_normals = chacha.normal(kg, (2, L, dpt, d, cols, n), torch.float32)
-    z_i = _gauss_samp_gq(syndrome.data, g_normals, base_bits=params.base_bits, dpt=dpt,
-                         moduli=tuple(params.moduli), sigma=sigma, c=c)
-    ze = _matrix_from_signed(params, z_i).to_eval()
-    top = p1e.slice_rows(0, d) + r_e @ ze
-    mid = p1e.slice_rows(d, 2 * d) + e_e @ ze
-    bot = p2e + ze
-    return top.concat_rows([mid, bot])
+    with tracing.span("trapdoor.p2"):
+        gn = chacha.normal(kp2, (d * k, cols, n), torch.float32)
+        p2_int = torch.round(gn * float(np.float32(sigma_large)))
+        p2e = _matrix_from_signed(params, p2_int).to_eval()
+        tp2c = _centered_lift_f64(r_e.concat_rows([e_e]) @ p2e)
+    with tracing.span("trapdoor.p1"):
+        p1_normals = chacha.normal(kp1, tuple(tp2c.shape), torch.float32)
+        p1i = _sample_p1_ints(tp2c, sqrt_var, upd, c_scale, p1_normals)
+        p1e = _matrix_from_signed(params, p1i).to_eval()
+    with tracing.span("trapdoor.syndrome"):
+        p_hat_e = p1e.concat_rows([p2e])
+        syndrome = (target - pub @ p_hat_e).to_coeff()
+    # the G-lattice sample over every tower; the loop's count added once
+    with tracing.span("trapdoor.gauss_samp_gq", towers=L):
+        g_normals = chacha.normal(kg, (2, L, dpt, d, cols, n), torch.float32)
+        z_i = _gauss_samp_gq(syndrome.data, g_normals, base_bits=params.base_bits, dpt=dpt,
+                             moduli=tuple(params.moduli), sigma=sigma, c=c)
+        tracing.count("trapdoor.gq_towers", L)
+        ze = _matrix_from_signed(params, z_i).to_eval()
+    with tracing.span("trapdoor.combine"):
+        top = p1e.slice_rows(0, d) + r_e @ ze
+        mid = p1e.slice_rows(d, 2 * d) + e_e @ ze
+        bot = p2e + ze
+        return top.concat_rows([mid, bot])
 
 
 class TrapdoorSampler:
@@ -337,19 +345,21 @@ class TrapdoorSampler:
         key = (id(trapdoor), id(public_matrix), s)
         entry = self._cache.get(key)
         if entry is None or entry[0] is not trapdoor or entry[1] is not public_matrix:
-            lifts = [_centered_lift_f64(m).cpu().numpy()
-                     for m in (trapdoor.a_mat(), trapdoor.b_mat(), trapdoor.d_mat())]
-            cov = _build_p1_cov(*lifts, s, self.c)
-            sqrt_var, upd = _p1_ldl_tables(cov, self.sigma * self.sigma)
-            entry = (
-                trapdoor,
-                public_matrix,
-                trapdoor.r.to_eval(),
-                trapdoor.e.to_eval(),
-                public_matrix.to_eval(),
-                torch.from_numpy(sqrt_var).to(self.device),
-                torch.from_numpy(upd).to(self.device),
-            )
+            tracing.count("trapdoor.operand_cache_miss")
+            with tracing.span("trapdoor.operands"):
+                lifts = [_centered_lift_f64(m).cpu().numpy()
+                         for m in (trapdoor.a_mat(), trapdoor.b_mat(), trapdoor.d_mat())]
+                cov = _build_p1_cov(*lifts, s, self.c)
+                sqrt_var, upd = _p1_ldl_tables(cov, self.sigma * self.sigma)
+                entry = (
+                    trapdoor,
+                    public_matrix,
+                    trapdoor.r.to_eval(),
+                    trapdoor.e.to_eval(),
+                    public_matrix.to_eval(),
+                    torch.from_numpy(sqrt_var).to(self.device),
+                    torch.from_numpy(upd).to(self.device),
+                )
             self._cache[key] = entry
         ops = entry[2:]
         if device is None or ops[0].data.device == torch.device(device):
@@ -357,23 +367,28 @@ class TrapdoorSampler:
         key += (str(device),)
         copy = self._cache.get(key)
         if copy is None or copy[0] is not trapdoor or copy[1] is not public_matrix:
-            copy = (trapdoor, public_matrix,
-                    *[PolyMatrix(m.data.to(device), m.fmt, m.params) for m in ops[:3]],
-                    *[t.to(device) for t in ops[3:]])
+            tracing.count("trapdoor.operand_cache_miss")
+            with tracing.span("trapdoor.operands", device=str(device)):
+                copy = (trapdoor, public_matrix,
+                        *[PolyMatrix(m.data.to(device), m.fmt, m.params) for m in ops[:3]],
+                        *[t.to(device) for t in ops[3:]])
             self._cache[key] = copy
         return copy[2:]
 
     def trapdoor(self, params: RingParams, size: int) -> tuple[Trapdoor, PolyMatrix]:
         d = size
         k = params.modulus_digits
-        gauss = GaussDist(self.sigma)
-        r = self._uniform.sample_uniform(params, d, d * k, gauss)
-        e = self._uniform.sample_uniform(params, d, d * k, gauss)
-        a_bar = self._uniform.sample_uniform(params, d, d, FinRingDist())
-        g = PolyMatrix.gadget_matrix(params, d, self.device)
-        a0 = a_bar.concat_columns([PolyMatrix.identity(params, d, device=self.device)])
-        a1 = g - (a_bar @ r + e)
-        a = a0.concat_columns([a1])
+        with tracing.span("trapdoor.trapdoor", n=params.n, towers=params.crt_depth, d=d):
+            with tracing.span("trapdoor.sample_re"):
+                gauss = GaussDist(self.sigma)
+                r = self._uniform.sample_uniform(params, d, d * k, gauss)
+                e = self._uniform.sample_uniform(params, d, d * k, gauss)
+            with tracing.span("trapdoor.public_matrix"):
+                a_bar = self._uniform.sample_uniform(params, d, d, FinRingDist())
+                g = PolyMatrix.gadget_matrix(params, d, self.device)
+                a0 = a_bar.concat_columns([PolyMatrix.identity(params, d, device=self.device)])
+                a1 = g - (a_bar @ r + e)
+                a = a0.concat_columns([a1])
         return Trapdoor(r=r, e=e), a
 
     def preimage(self, params: RingParams, trapdoor: Trapdoor, public_matrix: PolyMatrix,
@@ -418,31 +433,33 @@ class TrapdoorSampler:
         s = preimage_smoothing_parameter(self.base, self.sigma, d, params.n, k)
         shards = 1 if mesh is None else mesh.shape[COL_AXIS]
         total = target.ncol
-        data = target.to_eval().data
-        pad = (-total) % shards
-        if pad:
-            data = torch.cat([data, data[:, :, total - 1:].expand(-1, -1, pad, -1)], dim=2)
-        width = data.shape[2] // shards
-        self._ctr += 1
-        call_key = chacha.fold_in(self._key, self._ctr)
-        # every shard is enqueued on its device before any is gathered, so
-        # the shards of a multi-card mesh overlap. JAX replicates the body
-        # over the limb axis of a 2-D mesh; here each column shard is
-        # computed once, on the device at limb index 0.
-        outs = []
-        for j in range(shards):
-            dev = None if mesh is None else mesh.device(**{COL_AXIS: j})
-            r_e, e_e, pub, sqrt_var, upd = self._operands(trapdoor, public_matrix, s, dev)
-            dev = r_e.data.device
-            shard = PolyMatrix(data[:, :, j * width:(j + 1) * width].to(dev), EVAL, params)
-            key = chacha.fold_in(call_key.to(dev), j)
-            outs.append(_preimage_core(params, key, shard, r_e, e_e, pub, sqrt_var, upd,
-                                       sigma=self.sigma, c=self.c, s=s))
-        if shards == 1:
-            return outs[0]
-        home = public_matrix.data.device
-        x = torch.cat([o.data.to(home) for o in outs], dim=2)
-        return PolyMatrix(x[:, :, :total], EVAL, params)
+        with tracing.span("trapdoor.preimage", cols=total, shards=shards):
+            data = target.to_eval().data
+            pad = (-total) % shards
+            if pad:
+                data = torch.cat([data, data[:, :, total - 1:].expand(-1, -1, pad, -1)], dim=2)
+            width = data.shape[2] // shards
+            self._ctr += 1
+            call_key = chacha.fold_in(self._key, self._ctr)
+            # every shard is enqueued on its device before any is gathered, so
+            # the shards of a multi-card mesh overlap. JAX replicates the body
+            # over the limb axis of a 2-D mesh; here each column shard is
+            # computed once, on the device at limb index 0.
+            outs = []
+            for j in range(shards):
+                dev = None if mesh is None else mesh.device(**{COL_AXIS: j})
+                r_e, e_e, pub, sqrt_var, upd = self._operands(trapdoor, public_matrix, s, dev)
+                dev = r_e.data.device
+                shard = PolyMatrix(data[:, :, j * width:(j + 1) * width].to(dev), EVAL, params)
+                key = chacha.fold_in(call_key.to(dev), j)
+                outs.append(_preimage_core(params, key, shard, r_e, e_e, pub, sqrt_var, upd,
+                                           sigma=self.sigma, c=self.c, s=s))
+            if shards == 1:
+                return outs[0]
+            with tracing.span("mesh.gather", shards=shards):
+                home = public_matrix.data.device
+                x = torch.cat([o.data.to(home) for o in outs], dim=2)
+                return PolyMatrix(x[:, :, :total], EVAL, params)
 
     def preimage_batched_chunked(self, params: RingParams, trapdoor: Trapdoor,
                                  public_matrix: PolyMatrix, targets: list, mesh=None,

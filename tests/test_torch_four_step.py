@@ -17,6 +17,12 @@ import torch
 from mxx_tpu_torch.ops import four_step
 from mxx_tpu_torch.ring import ntt
 from mxx_tpu_torch.ring.params import RingParams
+from mxx_tpu_torch.utils import tracing
+
+
+def _launches(rec, *names) -> dict:
+    """The recording's deltas of the kernel-launch counters `names`."""
+    return {n: rec.counters[n] for n in names}
 
 
 def _residues(params, B, seed):
@@ -242,11 +248,11 @@ def test_kernel_schedule_equals_pallas_fused():
 def test_wrapper_on_cpu_takes_plain_and_rejects_bad_input():
     p = RingParams.new(1024, 2, 28, 14)
     x = _t(_residues(p, 3, 3)).reshape(2, 3, 1, 1024)
-    four_step.launches.update(fwd=0, inv=0)
-    y = four_step.four_step_ntt_fwd(x, p, 16)
-    assert torch.equal(y, four_step.four_step_ntt_fwd_plain(x, p, 16))
-    assert torch.equal(four_step.four_step_ntt_inv(y, p, 16), x)
-    assert four_step.launches == {"fwd": 0, "inv": 0}
+    with tracing.recording() as rec:
+        y = four_step.four_step_ntt_fwd(x, p, 16)
+        assert torch.equal(y, four_step.four_step_ntt_fwd_plain(x, p, 16))
+        assert torch.equal(four_step.four_step_ntt_inv(y, p, 16), x)
+    assert _launches(rec, "ntt.k1", "ntt.k2") == {"ntt.k1": 0, "ntt.k2": 0}
     with pytest.raises(ValueError, match="CUDA"):
         four_step.check_shape(x, p, 16)
 
@@ -258,11 +264,11 @@ def test_kernel_equals_plain_on_card(cuda_device, args, B):
     n1 = p.n // 128
     t = p.tables(cuda_device)
     x = _t(_residues(p, B, 1)).to(cuda_device)
-    four_step.launches.update(fwd=0, inv=0)
-    fwd = four_step.four_step_ntt_fwd(x, p, n1)
-    back = four_step.four_step_ntt_inv(fwd, p, n1)
+    with tracing.recording() as rec:
+        fwd = four_step.four_step_ntt_fwd(x, p, n1)
+        back = four_step.four_step_ntt_inv(fwd, p, n1)
     torch.cuda.synchronize()
-    assert four_step.launches == {"fwd": 1, "inv": 1}
+    assert _launches(rec, "ntt.k1", "ntt.k2") == {"ntt.k1": 1, "ntt.k2": 1}
     assert torch.equal(fwd, four_step.four_step_ntt_fwd_plain(x, p, n1))
     assert torch.equal(fwd, ntt.ntt_fwd(x, t.psi_rev, t.moduli))
     assert torch.equal(back, x)
@@ -292,13 +298,14 @@ def test_ntt_auto_on_card_launches_kernels(cuda_device):
     and the radix chain takes n outside that range on the card too."""
     p = RingParams.new(2048, 2, 28, 14)
     x = _t(_residues(p, 3, 5)).to(cuda_device)
-    four_step.launches.update(fwd=0, inv=0)
-    y = ntt.ntt_fwd_auto(x, p)
-    back = ntt.ntt_inv_auto(y, p)
+    with tracing.recording() as rec:
+        y = ntt.ntt_fwd_auto(x, p)
+        back = ntt.ntt_inv_auto(y, p)
     torch.cuda.synchronize()
-    assert four_step.launches == {"fwd": 1, "inv": 1}
+    assert _launches(rec, "ntt.k1", "ntt.k2") == {"ntt.k1": 1, "ntt.k2": 1}
     assert torch.equal(back, x)
     small = RingParams.new(1024, 2, 28, 14)
     xs = _t(_residues(small, 3, 6)).to(cuda_device)
-    assert torch.equal(ntt.ntt_inv_auto(ntt.ntt_fwd_auto(xs, small), small), xs)
-    assert four_step.launches == {"fwd": 1, "inv": 1}
+    with tracing.recording() as rec:
+        assert torch.equal(ntt.ntt_inv_auto(ntt.ntt_fwd_auto(xs, small), small), xs)
+    assert _launches(rec, "ntt.k1", "ntt.k2") == {"ntt.k1": 0, "ntt.k2": 0}

@@ -16,6 +16,12 @@ import torch
 from mxx_tpu_torch.ops import four_step, hybrid_ntt
 from mxx_tpu_torch.ring import ntt
 from mxx_tpu_torch.ring.params import RingParams
+from mxx_tpu_torch.utils import tracing
+
+
+def _launches(rec) -> dict:
+    """The recording's deltas of K3's launch counters."""
+    return {n: rec.counters[n] for n in ("ntt.k3_head", "ntt.k3_whole")}
 
 
 def _residues(params, B, seed):
@@ -62,15 +68,15 @@ def test_head_and_hybrid_equal_pallas(n):
     np.testing.assert_array_equal(
         want, np.asarray(jax_ntt_fwd(xj, jt.psi_rev_mont, jt.moduli, jt.qinv_neg)))
 
-    hybrid_ntt.launches.update(head=0, hybrid=0)
-    head = hybrid_ntt.ntt_fwd_head_plain(_t(x), p)
-    np.testing.assert_array_equal(head.numpy(), want_head.astype(np.int64))
-    assert torch.equal(hybrid_ntt.ntt_fwd_head(_t(x), p), head)
-    full = hybrid_ntt.ntt_fwd_hybrid(_t(x), p)
-    np.testing.assert_array_equal(full.numpy(), want.astype(np.int64))
-    assert torch.equal(hybrid_ntt.ntt_fwd_hybrid_plain(_t(x), p), full)
+    with tracing.recording() as rec:
+        head = hybrid_ntt.ntt_fwd_head_plain(_t(x), p)
+        np.testing.assert_array_equal(head.numpy(), want_head.astype(np.int64))
+        assert torch.equal(hybrid_ntt.ntt_fwd_head(_t(x), p), head)
+        full = hybrid_ntt.ntt_fwd_hybrid(_t(x), p)
+        np.testing.assert_array_equal(full.numpy(), want.astype(np.int64))
+        assert torch.equal(hybrid_ntt.ntt_fwd_hybrid_plain(_t(x), p), full)
     # on the CPU the wrappers take the plain versions and launch nothing
-    assert hybrid_ntt.launches == {"head": 0, "hybrid": 0}
+    assert _launches(rec) == {"ntt.k3_head": 0, "ntt.k3_whole": 0}
 
 
 @pytest.mark.parametrize("n", [2, 64, 128, 256, 2048])
@@ -183,9 +189,9 @@ def test_fwd_route_is_a_rule_over_n():
     p = RingParams.new(256, 2, 28, 14)
     t = p.tables("cpu")
     x = _t(_residues(p, 3, 8))
-    hybrid_ntt.launches.update(head=0, hybrid=0)
-    assert torch.equal(ntt.ntt_fwd_auto(x, p), ntt.ntt_fwd(x, t.psi_rev, t.moduli))
-    assert hybrid_ntt.launches == {"head": 0, "hybrid": 0}
+    with tracing.recording() as rec:
+        assert torch.equal(ntt.ntt_fwd_auto(x, p), ntt.ntt_fwd(x, t.psi_rev, t.moduli))
+    assert _launches(rec) == {"ntt.k3_head": 0, "ntt.k3_whole": 0}
 
 
 @pytest.mark.cuda
@@ -196,11 +202,11 @@ def test_kernel_equals_plain_on_card(cuda_device, args, B):
     p = RingParams.new(*args)
     t = p.tables(cuda_device)
     x = _t(_residues(p, B, 1)).to(cuda_device)
-    hybrid_ntt.launches.update(head=0, hybrid=0)
-    head = hybrid_ntt.ntt_fwd_head(x, p)
-    full = hybrid_ntt.ntt_fwd_hybrid(x, p)
+    with tracing.recording() as rec:
+        head = hybrid_ntt.ntt_fwd_head(x, p)
+        full = hybrid_ntt.ntt_fwd_hybrid(x, p)
     torch.cuda.synchronize()
-    assert hybrid_ntt.launches == {"head": 1, "hybrid": 1}
+    assert _launches(rec) == {"ntt.k3_head": 1, "ntt.k3_whole": 1}
     assert torch.equal(head, hybrid_ntt.ntt_fwd_head_plain(x, p))
     assert torch.equal(full, hybrid_ntt.ntt_fwd_hybrid_plain(x, p))
     assert torch.equal(full, ntt.ntt_fwd(x, t.psi_rev, t.moduli))
@@ -214,10 +220,10 @@ def test_fwd_auto_launches_k3_on_card(cuda_device, n):
     p = RingParams.new(n, 2, 28, 14)
     t = p.tables(cuda_device)
     x = _t(_residues(p, 3, 5)).to(cuda_device)
-    hybrid_ntt.launches.update(head=0, hybrid=0)
-    got = ntt.ntt_fwd_auto(x, p)
+    with tracing.recording() as rec:
+        got = ntt.ntt_fwd_auto(x, p)
     torch.cuda.synchronize()
-    assert hybrid_ntt.launches == {"head": 0, "hybrid": 1}
+    assert _launches(rec) == {"ntt.k3_head": 0, "ntt.k3_whole": 1}
     assert torch.equal(got, ntt.ntt_fwd(x, t.psi_rev, t.moduli))
 
 

@@ -24,13 +24,13 @@ import pytest
 import torch
 
 from mxx_tpu_torch.matrix import PolyMatrix
-from mxx_tpu_torch.ops import four_step
 from mxx_tpu_torch.parallel import LIMB_AXIS, Mesh, Sharding, crt_switch_sharded, make_mesh
 from mxx_tpu_torch.ring import ntt
 from mxx_tpu_torch.ring.params import RingParams
 from mxx_tpu_torch.ring.poly import COEFF
 from mxx_tpu_torch.sampler import FinRingDist, TrapdoorSampler, UniformSampler, chacha
 from mxx_tpu_torch.sampler.trapdoor import _preimage_core, preimage_smoothing_parameter
+from mxx_tpu_torch.utils import tracing
 
 SIGMA = 4.578
 MODULI = (2, 251, 1 << 16)
@@ -109,9 +109,10 @@ def test_mesh_over_every_card(cards):
     p = RingParams.new(4096, 4, 24, 12)
     n_shards = max(2, len(cards))
     cols = Mesh([[cards[j % len(cards)] for j in range(n_shards)]])
-    four_step.launches.update(fwd=0, inv=0)
-    _check_sharded_preimage(p, cols, (3, 5), 101, cards[0])
-    assert four_step.launches["fwd"] and four_step.launches["inv"]
+    with tracing.recording() as rec:
+        _check_sharded_preimage(p, cols, (3, 5), 101, cards[0])
+    assert rec.counters["ntt.k1"] and rec.counters["ntt.k2"]
+    assert len(rec.named("mesh.gather")) == 1
 
     limbs = make_mesh(n_shards)
     assert limbs.shape[LIMB_AXIS] * len(limbs.devices[0]) == n_shards

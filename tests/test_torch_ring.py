@@ -14,11 +14,11 @@ from mxx_tpu.ring.ntt import ntt_inv as jax_ntt_inv
 from mxx_tpu.ring.params import RingParams as JaxRingParams
 from mxx_tpu.utils import u32 as jax_u32
 
-from mxx_tpu_torch.ops import elementwise, four_step
+from mxx_tpu_torch.ops import elementwise
 from mxx_tpu_torch.ring import ntt
 from mxx_tpu_torch.ring.element import FinRingElem
 from mxx_tpu_torch.ring.params import RingParams
-from mxx_tpu_torch.utils import u32
+from mxx_tpu_torch.utils import tracing, u32
 
 NP_TABLES = [
     "np_moduli", "np_qinv_neg", "np_r1", "np_r2", "np_psi_rev_mont",
@@ -142,10 +142,11 @@ def test_ntt_auto_on_cpu_takes_the_chain():
     card's plan sends to them."""
     p = RingParams.new(2048, 2, 28, 14)
     x = _t(_residues(p, (2,), 7))
-    four_step.launches.update(fwd=0, inv=0)
     t = p.tables("cpu")
-    y = ntt.ntt_fwd_auto(x, p)
-    assert torch.equal(y, ntt.ntt_fwd(x, t.psi_rev, t.moduli))
-    assert torch.equal(ntt.ntt_inv_auto(y, p), x)
-    assert four_step.launches == {"fwd": 0, "inv": 0}
+    with tracing.recording() as rec:
+        y = ntt.ntt_fwd_auto(x, p)
+        assert torch.equal(y, ntt.ntt_fwd(x, t.psi_rev, t.moduli))
+        assert torch.equal(ntt.ntt_inv_auto(y, p), x)
+    assert (rec.counters["ntt.k1"], rec.counters["ntt.k2"]) == (0, 0)
+    assert (rec.counters["ntt.chain_fwd"], rec.counters["ntt.chain_inv"]) == (1, 1)
     assert ntt._fused_plan(x) is None
