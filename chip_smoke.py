@@ -24,7 +24,9 @@ no package beside it, a kernel that does not build, launch or agree):
 4. the main path: an MP12 trapdoor preimage at the bench shape
    (n=2^14, L=10, crt_bits 24, base_bits 12, d=1, sigma 4.578, seed 2,
    uniform 1x50 target), checked A x == U exactly, with the kernels' launch
-   counters reset before the call and read after it;
+   counters reset before the call and read after it: K1, K2 and the ChaCha20
+   kernel each launched, and every keystream block of the call made by the
+   ChaCha20 kernel;
 5. BGG+ circuit evaluation at n=2^13, L=8, crt_bits 28, base_bits 14, d=1:
    16 public and 16 secret inputs, hash-sampled public keys, encodings with
    zero error, scaled public inputs (8 SmallScalarMul, 8 LargeScalarMul),
@@ -281,8 +283,14 @@ no package beside it, a kernel that does not build, launch or agree):
    and its integer floor, and its share `pct_of_bound`; beside it
    `bound_ms_u32`, the same bound for the TPU kernel's uint32 layout, 8
    bytes per residue; `chain_ms`, the radix chain's time; `library_ms`
-   null, since no PyTorch call computes an exact NTT mod q), then the
-   result line.
+   null, since no PyTorch call computes an exact NTT mod q), and the
+   ChaCha20 kernel's rows: `_keystream_words` through the kernel against
+   its plain twin on the card, bit for bit, at a bench-ring and a
+   security-100 preimage call's keystream (3,174,400 and 2,621,440 blocks,
+   one launch each), its time per launch back to back and for one call, the
+   twin's, and its bound, the larger of its int64 stores and the issue floor
+   of its SASS (`CHACHA_SASS`; `library_ms` null, since no PyTorch call
+   computes ChaCha20; `launches` the main path's), then the result line.
 """
 
 import json
@@ -1136,12 +1144,13 @@ def timed(fn):
 
 # the tracer's kernel-launch counters, under this script's names
 LAUNCH_COUNTERS = {"fwd": "ntt.k1", "inv": "ntt.k2", "head": "ntt.k3_head",
-                   "hybrid": "ntt.k3_whole"}
+                   "hybrid": "ntt.k3_whole", "chacha": "chacha.kernel_launches"}
 _launch_base: dict = {}
 
 
 def reset_launches() -> None:
-    """Start counting K1/K2 (four_step) and K3 (hybrid_ntt) launches anew."""
+    """Start counting K1/K2 (four_step), K3 (hybrid_ntt) and ChaCha20
+    (sampler/chacha.py) launches anew."""
     from mxx_tpu_torch.utils import tracing
 
     _launch_base.clear()
@@ -1151,7 +1160,8 @@ def reset_launches() -> None:
 def launch_counts() -> dict:
     """Launches since reset_launches, from the tracer's counters: K1 "fwd",
     K2 "inv", K3 "head" and "hybrid" (ring/ntt.py routes forward transforms
-    of 256 <= n < 2048 and 16384 < n <= 65536 on the card to K3's "hybrid")."""
+    of 256 <= n < 2048 and 16384 < n <= 65536 on the card to K3's "hybrid"),
+    and the ChaCha20 kernel "chacha"."""
     from mxx_tpu_torch.utils import tracing
 
     now = tracing.counters()
@@ -3526,6 +3536,7 @@ def drive_mesh(dev, timing, lwe_ms) -> dict:
     from mxx_tpu_torch.ring.params import RingParams
     from mxx_tpu_torch.ring.poly import COEFF
     from mxx_tpu_torch.sampler import FinRingDist, TrapdoorSampler, UniformSampler, chacha
+    from mxx_tpu_torch.utils import tracing
     from mxx_tpu_torch.sampler.trapdoor import _preimage_core, preimage_smoothing_parameter
 
     t_phase = time.perf_counter()
@@ -3920,6 +3931,91 @@ def drive_kernel_rows(dev, timing, pp, xm, by_path, lut_counts, radix_counts, ra
 
 
 
+# ChaCha20's draws, one launch each at a preimage call's keystream: the bench
+# ring's 3,174,400 blocks (n=2^14, L=10, 50 columns: p2, p1 and the
+# G-sampler's draws) and the security-100 ring's 2,621,440 (n=2^16, L=53, 2
+# columns)
+CHACHA_BLOCKS = (("bench ring, n=2^14 L=10 cols=50", 3_174_400),
+                 ("sec100 ring, n=2^16 L=53 cols=2", 2_621_440))
+# instructions per block on the path that chacha20_kernel's sm_90a SASS
+# (`cuobjdump -sass` of the built library, torch 2.11 / CUDA 12.8's nvcc)
+# takes for one key, counters made in the kernel, all 16 stores and one pass
+# of its grid-stride loop: on the integer ALU pipe (320 LOP3 xors, 320 SHF
+# rotates, 40 ISETP, 36 LEA, 16 IADD3, 8 VIADD; 64 lanes an SM), on the FMA
+# pipe (ptxas issues the 320 adds as IMAD.IADD; 346 IMAD.IADD, 34 IMAD, 19
+# IMAD.MOV, 19 IMAD.WIDE, 16 IMAD.X; 64 lanes), and all issued (4 schedulers
+# issue 128 lanes an SM a clock); recount them when the kernel changes
+CHACHA_SASS = {"alu": 740, "fma": 434, "issued": 1276}
+# launches timed back to back, so that the host's enqueue of one overlaps the
+# kernel before it and the time per launch is the kernel's own
+CHACHA_BURST = 20
+
+
+def chacha_bound(nblocks: int) -> dict:
+    """The least time of `nblocks` ChaCha20 blocks: the larger of their int64
+    stores (128 bytes a block over 3.35 TB/s) and the SASS's issue floor (the
+    busiest of the ALU pipe, the FMA pipe and issue itself, at INT32_PER_S a
+    pipe); beside it the same bound for uint32 words (64 bytes a block)."""
+    bytes_ms = nblocks * 128 / HBM_BYTES_PER_S * 1e3
+    per_block = max(CHACHA_SASS["alu"], CHACHA_SASS["fma"], CHACHA_SASS["issued"] / 2)
+    int_ms = nblocks * per_block / INT32_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, int_ms), "bound_by": "bytes" if bytes_ms >= int_ms
+            else "operations", "bytes_ms": bytes_ms, "int_floor_ms": int_ms,
+            "bound_ms_u32": max(bytes_ms / 2, int_ms), "bytes_ms_u32": bytes_ms / 2,
+            "bound_by_u32": "bytes" if bytes_ms / 2 >= int_ms else "operations"}
+
+
+def chacha_rows(dev, timing, launches: int, by_path: dict) -> list:
+    """The kernels line's ChaCha20 rows: `_keystream_words` through the kernel
+    of csrc/chacha20.cu against the plain twin (`_plain`) on the card, bit for
+    bit, at CHACHA_BLOCKS, with the kernel's time per launch back to back and
+    for one call, the twin's (CUDA events), and the kernel's bound.
+    `launches` is the main path's count."""
+    from mxx_tpu_torch.sampler import chacha
+
+    key = chacha.key_from_bytes(BGG_KEY, dev)
+    rows = []
+    for label, nblocks in CHACHA_BLOCKS:
+        nwords = 16 * nblocks
+        nonces = (nblocks >> 32, 0, chacha._DOMAIN_NORMAL)
+        run = partial(chacha._keystream_words, key, nwords, chacha._DOMAIN_NORMAL)
+        plain = partial(chacha._plain, key[None], None, nblocks, nwords, 0, nonces)
+        err = max_err(run(), plain()[0])
+
+        def burst(run=run):
+            for _ in range(CHACHA_BURST):
+                run()
+
+        ms = cuda_ms(burst, 5) / CHACHA_BURST
+        ms_call = cuda_ms(run, 10)
+        ms_plain = cuda_ms(plain, 2)
+        bound = chacha_bound(nblocks)
+        rows.append({
+            "name": f"chacha20_kernel [{nblocks} blocks]", "route": "cuda",
+            "source": f"mxx_tpu_torch/csrc/{chacha.SOURCE}",
+            "replaces": "none: the JAX package draws ChaCha20 in jnp (mxx_tpu/sampler/chacha.py)",
+            "launches": launches, "max_abs_err": err, "ms": ms, "ms_one_call": ms_call,
+            "plain_ms": ms_plain,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bytes_ms": bound["bytes_ms"], "int_floor_ms": bound["int_floor_ms"],
+            "sass_per_block": CHACHA_SASS, "bound_ms_u32": bound["bound_ms_u32"],
+            "bound_by_u32": bound["bound_by_u32"], "pct_of_bound": 100 * bound["bound_ms"] / ms,
+            "pct_of_bound_u32": 100 * bound["bound_ms_u32"] / ms, "library_ms": None,
+            "library": "none: no PyTorch call computes ChaCha20", "shape": [nwords],
+            "blocks": nblocks, "at": label, "chain_ms": None, "launches_by_path": by_path})
+        timing(f"chacha20_kernel {nblocks} blocks ({label})", ms, "ms",
+               f" kernel ({rows[-1]['pct_of_bound']:.1f}% of its bound {bound['bound_ms']:.4f} "
+               f"ms, bound by {bound['bound_by']}; issue floor {bound['int_floor_ms']:.4f} ms "
+               f"({CHACHA_SASS} SASS instructions per block); uint32-word bound "
+               f"{bound['bound_ms_u32']:.4f} ms, bound by {bound['bound_by_u32']}); "
+               f"{CHACHA_BURST} launches back to back, {ms_call:.4f} ms for one call with its "
+               f"enqueue; plain twin {ms_plain:.3f} ms; max |kernel - twin| {err} (tolerance 0: "
+               "bit-exact)")
+        if err != 0:
+            raise SystemExit("chip_smoke: the ChaCha20 kernel disagrees with its plain twin")
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -3930,7 +4026,8 @@ def main() -> None:
     from mxx_tpu_torch.ops import four_step, hybrid_ntt
     from mxx_tpu_torch.ring import ntt
     from mxx_tpu_torch.ring.params import RingParams
-    from mxx_tpu_torch.sampler import FinRingDist, TrapdoorSampler, UniformSampler
+    from mxx_tpu_torch.sampler import FinRingDist, TrapdoorSampler, UniformSampler, chacha
+    from mxx_tpu_torch.utils import tracing
 
     dev = torch.device("cuda")
     card = card_line()
@@ -3943,7 +4040,7 @@ def main() -> None:
     shapes = [("A", (8192, 8, 28, 14), 512), ("B", (16384, 10, 24, 12), 64)]
 
     # 1. build (the CUDA kernels with nvcc, the host codec and writer with g++)
-    build_kernels([four_step, hybrid_ntt, codec, writer])
+    build_kernels([four_step, hybrid_ntt, chacha, codec, writer])
 
     # 2. K1 and K2 against the radix chain and the plain four-step
     check_four_step(dev, shapes + [("C", (16384, 10, 24, 12), 1000)])
@@ -3964,6 +4061,8 @@ def main() -> None:
     x = ts.preimage(pp, td, a, target)
     torch.cuda.synchronize()
     counts = launch_counts()
+    blocks = {c: tracing.counters()[c] - _launch_base.get(c, 0)
+              for c in ("chacha.blocks", "chacha.kernel_blocks")}
     k = pp.modulus_digits
     shape_ok = x.shape == (k + 2, 50) and x.data.shape == (10, k + 2, 50, 16384)
     q = pp.tables(dev).moduli.view(-1, 1, 1, 1)
@@ -3971,11 +4070,16 @@ def main() -> None:
     exact = (a @ x) == target
     print(f"preimage n=16384 L=10 d=1 cols=50: x {tuple(x.data.shape)}, residues in range "
           f"{range_ok}, A x == U {exact}; launches in the call: fwd {counts['fwd']}, "
-          f"inv {counts['inv']}", flush=True)
+          f"inv {counts['inv']}, chacha {counts['chacha']} (keystream blocks "
+          f"{blocks['chacha.kernel_blocks']} by the kernel of {blocks['chacha.blocks']})",
+          flush=True)
     if not (shape_ok and range_ok and exact):
         raise SystemExit("chip_smoke: preimage check failed")
     if counts["fwd"] == 0 or counts["inv"] == 0:
         raise SystemExit("chip_smoke: the main path did not go through both kernels")
+    if counts["chacha"] == 0 or blocks["chacha.kernel_blocks"] != blocks["chacha.blocks"]:
+        raise SystemExit("chip_smoke: the main path's keystream did not all come from the "
+                         "ChaCha20 kernel")
     del x
 
     # 5. BGG+ circuit evaluation
@@ -4148,10 +4252,13 @@ def main() -> None:
              **{f"production ring n={n}": c for n, c in prod["per_ring"].items()}}
     by_path = {d: {name: c[d] for name, c in paths.items()} for d in ("fwd", "inv", "hybrid")}
     by_path["hybrid"]["radix path"] = radix_counts["hybrid"]
+    by_path["chacha"] = {name: c.get("chacha") for name, c in paths.items()}
 
     kernels = drive_kernel_rows(dev, timing, pp, xm, by_path, lut_counts, radix_counts,
                                 radix_err, noise_dio_counts["hybrid"], at_a, prod)
     del xm
+    torch.cuda.empty_cache()
+    kernels += chacha_rows(dev, timing, counts["chacha"], by_path["chacha"])
     torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)
