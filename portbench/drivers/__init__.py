@@ -1,6 +1,2 @@
-"""The general drivers that traffic files name by their `driver` key."""
-
-from .bgg import BggPassDriver
-from .preimage import PreimageDriver
-
-DRIVERS = {"preimage": PreimageDriver, "bgg_pass": BggPassDriver}
+"""The general drivers: `drivers/<name>.py` holds the driver that traffic
+files name by their `driver` key, as its class `DRIVER` (`Spec.driver`)."""

@@ -22,10 +22,23 @@ import torch
 from .. import circuits
 from ..reference import bgg as ref
 from ..reference.ring import Ring
-from .common import Keeper, generator, sub_seed, uniform_residues
+from .common import RING_SCHEMA, Keeper, generator, sub_seed, uniform_residues
 
 
 class BggPassDriver:
+    MIX_SCHEMA = {
+        "required": ["input_sets"],
+        "properties": {"input_sets": {"type": "integer", "minimum": 2}},
+    }
+    CONFIG_SCHEMA = {
+        "required": ["ring", "d", "encoding_error_sigma"],
+        "properties": {
+            "ring": RING_SCHEMA,
+            "d": {"type": "integer", "minimum": 1},
+            "encoding_error_sigma": {"type": "number", "minimum": 0},
+        },
+    }
+
     def __init__(self, ctx):
         self.ctx = ctx
         self.cfg, self.mix = ctx.cfg, ctx.mix
@@ -164,3 +177,6 @@ class BggPassDriver:
                 if x is not None and xf is None:
                     mismatch += 1
         return {"answers_judged": len(kept), "output_mismatch": mismatch}
+
+
+DRIVER = BggPassDriver

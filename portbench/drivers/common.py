@@ -7,6 +7,20 @@ import hashlib
 import torch
 
 
+# the configuration keys of a DCRT ring, as the drivers' CONFIG_SCHEMA name them
+RING_SCHEMA = {
+    "type": "object",
+    "required": ["ring_dimension", "crt_depth", "crt_bits", "base_bits"],
+    "additionalProperties": False,
+    "properties": {
+        "ring_dimension": {"type": "integer", "minimum": 2},
+        "crt_depth": {"type": "integer", "minimum": 1},
+        "crt_bits": {"type": "integer", "minimum": 2, "maximum": 30},
+        "base_bits": {"type": "integer", "minimum": 1},
+    },
+}
+
+
 def sub_seed(seed: int, *tags) -> int:
     """A 63-bit seed for one use of the run's seed (any whole number)."""
     text = ":".join(str(t) for t in (seed, *tags)).encode()

@@ -6,6 +6,13 @@ sampler caches its operands). Request i is a preimage of a fresh uniform
 target of `cols` columns drawn from the run's seed and i, through
 `TrapdoorSampler.preimage`. The client holds its last answer while the next
 is computed.
+
+On a cell of more than one chip, its cards form one row of a
+`parallel.Mesh` on its `col` axis, and request i goes through the port's
+sharded entry, `TrapdoorSampler.preimage_batched_sharded`: the target's
+columns split over the cards (the program pads them to a multiple of the
+cards), each card computes its shard, and the answer is gathered onto card
+0, which holds the trapdoor.
 """
 
 from __future__ import annotations
@@ -16,21 +23,40 @@ import torch
 
 from ..reference import preimage as judge
 from ..reference.ring import Ring, crt_moduli
-from .common import Keeper, generator, sub_seed, uniform_residues
+from .common import RING_SCHEMA, Keeper, generator, sub_seed, uniform_residues
 
 
 class PreimageDriver:
+    MIX_SCHEMA = {
+        "required": ["cols"],
+        "properties": {"cols": {"type": "integer", "minimum": 1}},
+    }
+    CONFIG_SCHEMA = {
+        "required": ["ring", "d", "trapdoor_sigma"],
+        "properties": {
+            "ring": RING_SCHEMA,
+            "d": {"type": "integer", "minimum": 1},
+            "trapdoor_sigma": {"type": "number", "minimum": 0},
+        },
+    }
+
     def __init__(self, ctx):
         self.ctx = ctx
         self.cfg, self.mix = ctx.cfg, ctx.mix
         self.cols = self.mix["cols"]
         self.dev = ctx.device(0)
+        self.mesh = None
 
     def setup(self) -> None:
+        from mxx_tpu_torch.parallel.mesh import Mesh
         from mxx_tpu_torch.ring.params import RingParams
         from mxx_tpu_torch.sampler.trapdoor import TrapdoorSampler
 
         ctx, r = self.ctx, self.cfg["ring"]
+        if ctx.chips > 1:
+            # one row of cards on `col`: make_mesh(4) would factor 4 into
+            # limb shards, and every column shard would land on card 0
+            self.mesh = Mesh([[ctx.device(j) for j in ctx.indices]])
         self.params = RingParams.new(r["ring_dimension"], r["crt_depth"], r["crt_bits"],
                                      r["base_bits"])
         self.moduli = torch.tensor(crt_moduli(r["ring_dimension"], r["crt_depth"], r["crt_bits"]),
@@ -63,7 +89,10 @@ class PreimageDriver:
         return PolyMatrix(data, COEFF, self.params)
 
     def request(self, i: int):
-        return self.sampler.preimage(self.params, self.trapdoor, self.public, self.target(i))
+        if self.mesh is None:
+            return self.sampler.preimage(self.params, self.trapdoor, self.public, self.target(i))
+        return self.sampler.preimage_batched_sharded(self.params, self.trapdoor, self.public,
+                                                     [self.target(i)], self.mesh)[0]
 
     def keep(self, i: int, x, force: bool = False) -> None:
         if self.keeper.wants(i) or force:  # wanted ones are kept in the window
@@ -116,3 +145,6 @@ class PreimageDriver:
         return {"answers_judged": len(kept), "a_rebuild_mismatch": rebuild,
                 "re_rms_gap": re_gap, "ax_mismatch": totals["ax_mismatch"],
                 "lift_mismatch": totals["lift_mismatch"], "x_rms_gap": abs(rms - 1.0)}
+
+
+DRIVER = PreimageDriver

@@ -22,7 +22,6 @@ import traceback
 import torch
 
 from . import roofline, tracing
-from .drivers import DRIVERS
 from .spec import Spec, dotted_prefixes
 
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "mxx_tpu")
@@ -86,7 +85,7 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
         for j in ctx.indices:
             torch.empty(0, device=ctx.device(j))  # the device's allocator, before its stats
             torch.cuda.reset_peak_memory_stats(j)
-    driver = DRIVERS[mix["driver"]](ctx)
+    driver = spec.driver(mix["driver"])(ctx)
     driver.setup()
     setup_s = process_age_s()
 
@@ -147,7 +146,9 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
     units = {m["name"]: m["unit"] for m in spec.bench["end_to_end"] + spec.bench["per_layer"]}
     if trace:
         data = {"cell": name, "driver": mix["driver"], "calls": mix.get("stack_calls", 2),
-                "stage_ms": stages, "busy_s": profiled["busy_s"], "window_s": window_s,
+                "stage_ms": stages, "busy_s": profiled["busy_s"],
+                "program_busy_s": profiled["program_busy_s"], "window_s": window_s,
+                "window_calls": done, "devices": ctx.indices, "copies": profiled["copies"],
                 "held_bytes": driver.held_bytes,
                 "transform_bound_ms": (roofline.call_bound_ms(counts)
                                        if counts.get("transforms_per_call") else None)}
@@ -175,6 +176,9 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
         result["breakdown"] = {"device_ops": profiled["device_ops"], "idle_gaps": idle_gaps}
         # every stage of the stacked calls, for PERF.md's "where the time goes"
         result["stage_ms_per_call"] = {k: v / data["calls"] for k, v in stages.items()}
+        result["window_copies_s"] = profiled["copies"]
+        result["window_busy_s"] = {"every_op": profiled["busy_s"],
+                                   "program": profiled["program_busy_s"]}
     result["setup_split_s"] = driver.setup_split_s  # for PERF.md; the driver ignores it
     if control:
         result["control_checks"] = cc = _checks(driver.judge(True), counts["limits"])

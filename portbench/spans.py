@@ -188,7 +188,6 @@ def run_spans(spec, name: str, seed: int, seconds: float, device_type: str = "cu
     import torch
 
     from mxx_tpu_torch.utils import tracing
-    from portbench.drivers import DRIVERS
     from portbench.harness import Context, _checks, _passed, process_age_s
 
     cell = spec.cell(name)
@@ -197,7 +196,7 @@ def run_spans(spec, name: str, seed: int, seconds: float, device_type: str = "cu
     if device_type == "cuda":
         for j in ctx.indices:
             torch.empty(0, device=ctx.device(j))
-    driver = DRIVERS[mix["driver"]](ctx)
+    driver = spec.driver(mix["driver"])(ctx)
     with tracing.recording() as setup_rec:
         driver.setup()
     setup_s = process_age_s()

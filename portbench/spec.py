@@ -3,8 +3,12 @@
 `BENCHMARK.json` names configurations, traffic mixes and cells; each has a
 file of its own under `portbench/`:
 
-- `configs/<config>.json`: the ring, d, sigmas, source, `reduced`, `assumed`;
+- `configs/<config>.json`: the deployment, its source, `reduced`, `assumed`,
+  and the keys that the drivers of its cells read (the ring, d, sigmas);
 - `traffic/<mix>.json`: the parameters that one general driver reads;
+- `drivers/<driver>.py`: that driver, the class `DRIVER`, whose
+  `MIX_SCHEMA` and `CONFIG_SCHEMA` are the closed fragments of the keys it
+  reads from a mix and from a configuration;
 - `cells/<cell>.json`: the limits of what the cell compares, and what was
   counted once for it (its transforms);
 - `metrics/<metric>.py`: the reader of one per-layer metric; a metric
@@ -12,9 +16,14 @@ file of its own under `portbench/`:
   its longest dotted prefix that has one, so that one quantity can be split
   by the cells that report it.
 
-A later change adds a configuration, a mix, a cell or a metric by adding
-such files and entries. `Spec` looks each name up in its search directories
-in order, so a test can add dummies from a directory of its own.
+A later change adds a configuration, a mix, a driver, a cell or a metric by
+adding such files and entries. `Spec` looks each name up in its search
+directories in order, so a test can add dummies from a directory of its own.
+
+A mix is checked against `schema/traffic.schema.json` (the keys every mix
+shares) together with its driver's `MIX_SCHEMA`, and a configuration against
+`schema/config.schema.json` together with the `CONFIG_SCHEMA` of every driver
+that runs a cell of it: a key that none of them names is refused.
 
 The schemas are a small subset of JSON Schema (type, required, properties,
 additionalProperties, enum, items, minimum, maximum, pattern), checked here
@@ -26,6 +35,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -78,9 +88,18 @@ def dotted_prefixes(name: str) -> list[str]:
     return [".".join(parts[:end]) for end in range(len(parts), 0, -1)]
 
 
-def load_json(path: Path, schema_name: str) -> dict:
+def load_json(path: Path, schema_name: str, fragments: tuple[dict, ...] = ()) -> dict:
+    """The file, checked against the schema and the drivers' `fragments`:
+    the schema is closed over its own keys and theirs, and each fragment
+    checks its own keys and names those it requires (a key that two of them
+    define meets both)."""
     data = json.loads(path.read_text())
-    validate(data, json.loads((SCHEMAS / f"{schema_name}.schema.json").read_text()), path.name)
+    schema = json.loads((SCHEMAS / f"{schema_name}.schema.json").read_text())
+    # the fragments' keys are let through here and checked by their fragments
+    wider = {key: {} for frag in fragments for key in frag["properties"]}
+    validate(data, dict(schema, properties={**wider, **schema["properties"]}), path.name)
+    for frag in fragments:
+        validate(data, dict(frag, type="object"), path.name)
     return data
 
 
@@ -111,8 +130,13 @@ class Spec:
         return self.cells[name]
 
     def config(self, name: str) -> dict:
+        """The configuration, checked with the fragments of the drivers of
+        its cells."""
         entry = self.configs[name]
-        data = load_json(self.root / entry["file"], "config")
+        drivers = {self.traffic(c["traffic"])["driver"] for c in self.cells.values()
+                   if c["config"] == name}
+        data = load_json(self.root / entry["file"], "config",
+                         tuple(self.driver(d).CONFIG_SCHEMA for d in sorted(drivers)))
         if data["name"] != name:
             raise SpecError(f"{entry['file']} holds config {data['name']!r}, not {name!r}")
         return data
@@ -121,7 +145,10 @@ class Spec:
         path = self._find("traffic", f"{name}.json")
         if path is None:
             raise SpecError(f"no traffic file for mix {name!r}")
-        data = load_json(path, "traffic")
+        driver = json.loads(path.read_text()).get("driver")
+        # a missing or malformed `driver` is refused by the shared schema
+        fragments = (self.driver(driver).MIX_SCHEMA,) if isinstance(driver, str) else ()
+        data = load_json(path, "traffic", fragments)
         if data["name"] != name:
             raise SpecError(f"{path.name} holds mix {data['name']!r}, not {name!r}")
         return data
@@ -140,6 +167,27 @@ class Spec:
     def per_layer(self, cell: str) -> list[dict]:
         return [m for m in self.bench["per_layer"]
                 if "workloads" not in m or cell in m["workloads"]]
+
+    def driver(self, name: str):
+        """The class `DRIVER` of `drivers/<name>.py`. The file is loaded as
+        the module `portbench.drivers.<name>`, so that it may import the
+        package's own modules relatively, from whichever search directory
+        it lies in."""
+        if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]{0,63}", name):
+            raise SpecError(f"{name!r} is not a driver's name")
+        path = self._find("drivers", f"{name}.py")
+        if path is None:
+            raise SpecError(f"no driver drivers/{name}.py")
+        mod_name = f"portbench.drivers.{name}"
+        module = sys.modules.get(mod_name)
+        if module is None or Path(module.__file__).resolve() != path.resolve():
+            spec = importlib.util.spec_from_file_location(mod_name, path)
+            module = importlib.util.module_from_spec(spec)
+            sys.modules[mod_name] = module
+            spec.loader.exec_module(module)
+        if not hasattr(module, "DRIVER"):
+            raise SpecError(f"drivers/{name}.py has no DRIVER")
+        return module.DRIVER
 
     def reader(self, metric: str):
         """The `read(trace)` function of `metrics/<prefix>.py`, for the

@@ -3,7 +3,8 @@
 Each test drives a whole run on the CPU at a tiny ring (everything but the
 look for a card) with one fault planted in the program, and sees `correct`
 come out false: a step that returns its state unchanged, half of the batch
-left out, an answer altered where it is produced; and, for the preimages,
+left out, an answer altered where it is produced, the exchange between
+cards left out (the mesh mix); and, for the preimages,
 the faults of `portbench/faults.py`, whose answers still solve A x = U
 exactly: the perturbation left out, a trapdoor drawn too narrow. The
 control (every output held with one bit less) is in
@@ -42,23 +43,50 @@ def _altered(x):
     return type(x)(data, x.fmt, x.params)
 
 
+PREIMAGE_MIXES = ["preimage_2col", "preimage_50col", "preimage_mesh4"]
+
+
 @pytest.mark.parametrize("fault", [_zeros, _half, _altered], ids=["unchanged", "half", "altered"])
-@pytest.mark.parametrize("mix", ["preimage_2col", "preimage_50col"])
+@pytest.mark.parametrize("mix", PREIMAGE_MIXES)
 def test_preimage_fault_is_not_correct(tmp_path, monkeypatch, mix, fault):
     from mxx_tpu_torch.sampler.trapdoor import TrapdoorSampler
 
-    real = TrapdoorSampler.preimage
+    # the body of both entries, `preimage` and `preimage_batched_sharded`
+    real = TrapdoorSampler._preimage_cols
 
     def broken(self, *args):
         return fault(real(self, *args))
 
-    monkeypatch.setattr(TrapdoorSampler, "preimage", broken)
+    monkeypatch.setattr(TrapdoorSampler, "_preimage_cols", broken)
     spec = tiny_bench(tmp_path, (mix,))
     assert not run_cell(spec, f"tiny.{mix}", SEED, 0.3, False, device_type="cpu")["correct"]
 
 
+def test_mesh_gather_left_out_is_not_correct(tmp_path, monkeypatch):
+    """Card 0 keeps its own shard, and the columns of the other cards' shards
+    never arrive: they are left as card 0 allocated them."""
+    from mxx_tpu_torch.parallel.mesh import COL_AXIS
+    from mxx_tpu_torch.sampler.trapdoor import TrapdoorSampler
+
+    real = TrapdoorSampler._preimage_cols
+    seen = []
+
+    def broken(self, params, trapdoor, public, target, mesh=None):
+        x = real(self, params, trapdoor, public, target, mesh)
+        seen.append(mesh.shape[COL_AXIS])
+        data = x.data.clone()
+        data[:, :, x.ncol // mesh.shape[COL_AXIS]:] = 0
+        return type(x)(data, x.fmt, x.params)
+
+    monkeypatch.setattr(TrapdoorSampler, "_preimage_cols", broken)
+    spec = tiny_bench(tmp_path, ("preimage_mesh4",))
+    r = run_cell(spec, "tiny.preimage_mesh4", SEED, 0.3, False, device_type="cpu")
+    assert seen and set(seen) == {4}
+    assert not r["correct"] and r["checks"]["ax_mismatch"]["value"] > 0
+
+
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("mix", ["preimage_2col", "preimage_50col"])
+@pytest.mark.parametrize("mix", PREIMAGE_MIXES)
 def test_preimage_of_a_narrowed_sampler_is_not_correct(tmp_path, mix, fault):
     spec = tiny_bench(tmp_path, (mix,))
     with FAULTS[fault]():
@@ -104,7 +132,7 @@ def test_bgg_fault_is_not_correct(tmp_path, monkeypatch, fault):
 def test_bgg_passes_share_no_inputs(tmp_path):
     """Each pass draws its wires from the pool afresh: no two passes of a
     window of thousands hand the program the same inputs."""
-    from portbench.drivers.bgg import BggPassDriver
+    from portbench.drivers.bgg_pass import BggPassDriver
     from portbench.harness import Context
 
     spec = tiny_bench(tmp_path, ("bgg_encoding_pass",))

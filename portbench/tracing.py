@@ -4,8 +4,9 @@ Two profiles, because recording host operations slows the host:
 
 - `window_profile`: the traced window with device activity alone. The
   device's busy time is the union of the intervals in which a kernel, copy or
-  fill ran on it; the breakdown's `device_ops` are the operations that took
-  most device time.
+  fill ran on it; the program's busy time leaves out the harness's own copies
+  of the judged answers (`HARNESS_COPIES`); the breakdown's `device_ops` are
+  the operations that took most device time.
 - `stage_profile`: a few more calls with host operations and Python stacks,
   for device time by stage and for the breakdown's `idle_gaps`: each gap
   between device operations goes to the innermost function of the program on
@@ -41,6 +42,9 @@ STAGE_FILES = [
 ]
 OTHER = "other device work"
 NTT_KERNELS = ("four_step_kernel", "radix_ntt_fwd_kernel")
+# the keeper's copies of judged answers into pinned host buffers
+# (`drivers/common.py`); the program allocates no pinned memory
+HARNESS_COPIES = ("Memcpy DtoH (Device -> Pinned)",)
 
 
 def _activities(device_type: str, host: bool):
@@ -110,19 +114,35 @@ def _top(d: dict, n: int = 10):
     return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:n]]
 
 
+def busy_by_device(events, devices: list[int], leave_out=()) -> list[float]:
+    """Seconds of each device's union of intervals of `events` (name,
+    start_ns, end_ns, on_device, device_index, ...), but those named in
+    `leave_out`."""
+    return [sum(b - a for a, b in _merge((e[1], e[2]) for e in events
+                                         if e[4] == idx and e[0] not in leave_out)) * 1e-9
+            for idx in devices]
+
+
 def window_profile(loop, device_type: str, devices: list[int]) -> dict:
     """Run `loop()` (the traced window, which returns its wall seconds) under
-    a profile of device activity alone; busy seconds per device and the
-    device operations that took most time."""
+    a profile of device activity alone; busy seconds per device, with every
+    operation and without the harness's copies, the device operations that
+    took most time, and the seconds of the memory copies by name and by the
+    device that ran them."""
     with profile(activities=_activities(device_type, host=False)) as prof:
         window_s = loop()
     device = [e for e in _raw_events(prof) if e[3]]
-    busy = [sum(b - a for a, b in _merge((e[1], e[2]) for e in device if e[4] == idx)) * 1e-9
-            for idx in devices]
+    busy = busy_by_device(device, devices)
+    program_busy = busy_by_device(device, devices, HARNESS_COPIES)
     ops = defaultdict(float)
+    copies = defaultdict(float)
     for e in device:
         ops[e[0]] += (e[2] - e[1]) * 1e-9
-    return {"window_s": window_s, "busy_s": busy, "device_ops": _top(ops)}
+        if e[0].startswith("Memcpy"):
+            copies[e[0], e[4]] += (e[2] - e[1]) * 1e-9
+    return {"window_s": window_s, "busy_s": busy, "program_busy_s": program_busy,
+            "device_ops": _top(ops),
+            "copies": [[name, idx, s] for (name, idx), s in sorted(copies.items())]}
 
 
 def stage_profile(calls, device_type: str, device: int) -> tuple[dict, list]:
